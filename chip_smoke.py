@@ -2,22 +2,29 @@
 """Smoke run of the PyTorch/CUDA port (spllt_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # everything, as described below
-    python3 chip_smoke.py --no-large      # skip the poisson3d(64) run
+    python3 chip_smoke.py --no-large      # skip the poisson3d(64) runs
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
-  1. builds the four CUDA kernels from ``spllt_tpu_torch/csrc``;
-  2. drives the main path through the public API only — analyse → factor →
-     refined solve of poisson3d(32) at nb=128, float32, nrhs=4 — with every
-     kernel's launch count set to 0 just before and read just after, then
-     checks the backward error, a refactorization that must reuse the cached
-     plans and executors, the not-positive-definite guard and jobs 1+2 = 0;
-  3. holds each kernel against its plain PyTorch version on the card, on
-     edge-case batches and at every shape the main path gave it (one
-     comparison per level of the plan), and times both there (CUDA events,
-     after a warm-up);
-  4. optionally repeats the main path at poisson3d(64).
+  1. builds the six CUDA kernels from ``spllt_tpu_torch/csrc``;
+  2. drives the level path (``schedule='scan'``) through the public API only
+     — analyse → factor → refined solve of poisson3d(32) at nb=128, float32,
+     nrhs=4 — with every kernel's launch count set to 0 just before and read
+     just after, then checks the backward error, a refactorization that must
+     reuse the cached plans and executors, the not-positive-definite guard
+     and jobs 1+2 = 0;
+  3. drives the stream path (``schedule='mega'``: the whole factorization as
+     one kernel, each solve sweep as one kernel) the same way, with the same
+     checks, and requires the stream executors to be the ones that ran;
+  4. holds each kernel against its plain PyTorch version on the card: the
+     four batched kernels on edge-case batches and at every shape the level
+     path gave them (one comparison per level of the plan), the two stream
+     kernels on the poisson3d(32) pool (also against the level executor's
+     factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
+     run with 1, 3 and all blocks; and times them there (CUDA events, after
+     a warm-up);
+  5. optionally repeats both main paths at poisson3d(64).
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -83,9 +90,19 @@ def kernel_wrappers():
     from spllt_tpu_torch.numeric.hopper_solve import left_solve
     from spllt_tpu_torch.numeric.hopper_trsm import trsm
     from spllt_tpu_torch.numeric.hopper_update import apply_updates
+    from spllt_tpu_torch.numeric.megakernel import mega_factorize
+    from spllt_tpu_torch.numeric.solve_mega import mega_solve
 
     return {"potrf": potrf, "trsm": trsm, "update": apply_updates,
-            "left_solve": left_solve}
+            "left_solve": left_solve, "mega_factor": mega_factorize,
+            "mega_solve": mega_solve}
+
+
+# the kernels each schedule's main path must go through, and its executors
+PATH_KERNELS = {"scan": ("potrf", "trsm", "update", "left_solve"),
+                "mega": ("mega_factor", "mega_solve")}
+PATH_EXECUTORS = {"scan": ("ScanFactorExecutor", "ScanSolveExecutor"),
+                  "mega": ("MegaFactorExecutor", "MegaSolveExecutor")}
 
 
 def update_level_work(tasks: dict, nb: int) -> dict:
@@ -109,25 +126,47 @@ def update_level_work(tasks: dict, nb: int) -> dict:
                 int((2 * nb * nb * ((kn + 7) // 8 * 8)).sum())}
 
 
+def upd_run_tasks(stream: dict, r: int) -> dict:
+    """The tables of UPD run ``r`` of a factor stream, under the names
+    :func:`update_level_work` reads."""
+    h = stream["host"]
+    t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
+    off = int(h["run_rel"][r])
+    return {"relr": stream["relr"][t0 - off:t1 - off],
+            "relc": stream["relc"][t0 - off:t1 - off],
+            "blkn": stream["aux"][t0:t1], "srcn": stream["srcn"][t0:t1],
+            "seg_ptr": stream["seg_ptr"][int(h["run_seg"][r]):
+                                         int(h["run_seg"][r + 1])]}
+
+
 def update_work(fex, nb: int) -> dict:
-    """Operation counts (GFLOP) of one factorization's update micro-tasks:
-    the sums of :func:`update_level_work` over the levels."""
+    """Operation counts (GFLOP) of one factorization's update tasks: the
+    sums of :func:`update_level_work` over the levels of a level executor or
+    over the UPD runs of a stream executor (which include the within-node
+    syrk products)."""
     keys = ("unmasked_full_k", "unmasked_trimmed_k", "dense_full_k",
             "dense_trimmed_k_slabs")
-    levels = [update_level_work(lv["upd"], nb) for lv in fex.levels
-              if "upd" in lv]
+    if hasattr(fex, "levels"):
+        tabs = [lv["upd"] for lv in fex.levels if "upd" in lv]
+    else:
+        kinds = fex.stream["host"]["run_kind"]
+        tabs = [upd_run_tasks(fex.stream, r) for r in range(len(kinds))
+                if kinds[r] == 0]
+    levels = [update_level_work(t, nb) for t in tabs]
     return {k: sum(w[k] for w in levels) / 1e9 for k in keys}
 
 
-def main_path(m: int, card: str, full_checks: bool):
+def main_path(m: int, card: str, full_checks: bool, schedule: str):
     """analyse → factor → refined solve of poisson3d(m) through the public
-    API.  Returns (record, num) for the kernel phase."""
+    API with ``schedule`` ('scan': level executors, 'mega': stream
+    executors).  Returns (record, num, factor executor, solve executor) for
+    the kernel phase."""
     import spllt_tpu_torch as st
     from spllt_tpu_torch.analyse.native import native_available
 
     wrappers = kernel_wrappers()
     opts = st.Options(ordering="nd-grid", grid_shape=(m, m, m), nb=128,
-                      nemin=192, schedule="scan", dtype="float32", refine=2)
+                      nemin=192, schedule=schedule, dtype="float32", refine=2)
     nrhs = 4
     a = st.poisson3d(m)
     rng = np.random.default_rng(SEED)
@@ -154,11 +193,17 @@ def main_path(m: int, card: str, full_checks: bool):
     err = bwd_err(a, x, b)
     require(err <= BWD_ERR_MAX, f"refined backward error {err} > "
                                 f"{BWD_ERR_MAX}")
-    for k, n_l in launches.items():
-        require(n_l > 0, f"kernel {k} was never launched on the main path")
+    for k in PATH_KERNELS[schedule]:
+        require(launches[k] > 0, f"kernel {k} was never launched on the "
+                                 f"schedule='{schedule}' main path")
 
     # steady state: cached plans and executors, CUDA-event timing
     fex = next(v for k, v in symb._cache.items() if k[0] == "fex")
+    sex = num._solve_execs[(nrhs,)]
+    require((type(fex).__name__, type(sex).__name__)
+            == PATH_EXECUTORS[schedule],
+            f"schedule='{schedule}' ran {type(fex).__name__} / "
+            f"{type(sex).__name__}")
     from spllt_tpu_torch.numeric.assemble import assemble_torch
 
     def factor_only():
@@ -167,27 +212,31 @@ def main_path(m: int, card: str, full_checks: bool):
         fex(pool)
 
     factor_ms = time_ms(factor_only, 3)
+    assemble_ms = time_ms(lambda: assemble_torch(
+        num.plan, num.values_perm, torch.float32, num.pool.device), 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st.solve(num, b)
     solve_wall_ms = (time.perf_counter() - t0) * 1e3
-    sex = num._solve_execs[(nrhs,)]
     xp = torch.zeros((a.n + 1, nrhs), dtype=torch.float32, device="cuda")
     xp[:a.n] = torch.as_tensor(b, device="cuda").float()
     solve_ms = time_ms(lambda: sex.full(num.pool, xp), 3)
 
     rec = dict(
         matrix=f"poisson3d({m})", n=a.n, nb=128, nemin=192, dtype="float32",
-        refine=2, nrhs=nrhs, ordering="nd-grid", schedule="scan",
+        refine=2, nrhs=nrhs, ordering="nd-grid", schedule=schedule,
+        executors=list(PATH_EXECUTORS[schedule]),
         nnz_l=int(symb.inform.num_factor),
         factor_flops=int(symb.inform.num_flops),
         nblocks=int(num.plan.nblocks), nlevels=int(num.fplan.nlevels),
-        update_micro_tasks=int(fex.num_micro_tasks),
+        update_micro_tasks=int(fex.num_micro_tasks if schedule == "scan" else
+                         fex.stream["relr"].shape[0]),
         update_gflop=update_work(fex, 128),
         pool_bytes=int(num.pool.numel() * 4), bwd_err=err,
         launches=launches, native_available=bool(native_available()),
         host_analyse_s=t_analyse, first_factor_s=t_first_factor,
         first_solve_s=t_first_solve, factor_ms=factor_ms,
+        assemble_ms=assemble_ms,
         factor_gflops=symb.inform.num_flops / factor_ms / 1e6,
         solve_fwd_bwd_ms=solve_ms, refined_solve_wall_ms=solve_wall_ms,
         card=card)
@@ -267,6 +316,32 @@ def potrf_ops(kv, nb):
     return int((col_len + 2 * right).sum())
 
 
+def potrf_work(kvs, nb, esz):
+    """(bytes, operations) of a potrf batch: every tile is written whole and
+    read only in the lower trapezoid of its columns < kv."""
+    kvs = np.asarray(kvs, np.int64)
+    return (len(kvs) * (nb * nb * esz + 4)
+            + int(trapezoid(kvs, nb).sum()) * esz,
+            sum(potrf_ops(int(k), nb) for k in kvs))
+
+
+def trsm_work(kvs, nb, esz):
+    """(bytes, operations) of a trsm batch: read the kv x kv lower triangle
+    of L and the columns < kv of dst, write one whole tile."""
+    kvs = np.asarray(kvs, np.int64)
+    return (int((kvs * (kvs + 1) // 2 + nb * kvs + nb * nb).sum()) * esz
+            + len(kvs) * 4, int((nb * kvs * kvs).sum()))
+
+
+def update_work_bound(w, nb, esz):
+    """(bytes, operations) of update tasks counted by
+    :func:`update_level_work`: read the gathered source entries, each
+    destination tile once and the task tables; write each destination tile
+    once."""
+    return (w["gathered"] * esz + 2 * w["segments"] * nb * nb * esz
+            + w["tasks"] * (2 * nb + 5) * 4, w["unmasked_trimmed_k"])
+
+
 def compare(name, kernel, plain, args, tol, reps, library=None):
     """Run kernel and plain version on the same inputs; returns
     (max_abs, rel, kernel_ms, plain_ms, library_ms).  ``library`` is one
@@ -284,11 +359,57 @@ def compare(name, kernel, plain, args, tol, reps, library=None):
         None if library is None else time_ms(library, reps)
 
 
+class Acc:
+    """Sums of one kernel row: times, errors, and the bound as the sum of
+    its launches' (or runs') bounds, each the larger of bytes over the
+    memory rate and operations over the float32 rate."""
+
+    def __init__(self):
+        self.n = 0
+        self.ms = self.pms = self.tb = self.to = 0.0
+        self.lms = None
+        self.bytes = self.flops = 0
+        self.mabs = self.rel = 0.0
+        self.kmax = 0
+
+    def add(self, batch, mabs, rel, ms, pms, lms, nbytes, flops):
+        self.n += 1
+        if lms is not None:
+            self.lms = (self.lms or 0.0) + lms
+        self.kmax = max(self.kmax, batch)
+        self.ms += ms
+        self.pms += pms
+        self.bound(nbytes, flops)
+        self.mabs, self.rel = max(self.mabs, mabs), max(self.rel, rel)
+
+    def bound(self, nbytes, flops):
+        """Add the bound of one launch or one run."""
+        self.bytes += int(nbytes)
+        self.flops += int(flops)
+        tb, to = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        if tb >= to:
+            self.tb += tb
+        else:
+            self.to += to
+
+
+def kernel_row(name, src_key, replaces, acc, per, shape, launches, tol):
+    from spllt_tpu_torch.numeric._build import KERNEL_SOURCES
+
+    return dict(
+        name=name, route="cuda",
+        source=f"spllt_tpu_torch/csrc/{KERNEL_SOURCES[src_key]}",
+        replaces=replaces, launches=launches[name],
+        max_abs_err=acc.mabs, rel_err=acc.rel, tol_rel=tol,
+        ms=acc.ms, plain_ms=acc.pms, bound_ms=(acc.tb + acc.to) * 1e3,
+        bound_by="bytes" if acc.tb >= acc.to else "operations",
+        library_ms=acc.lms, launches_timed=acc.n, per=per, shape=shape,
+        bytes=acc.bytes, flops=acc.flops)
+
+
 def kernel_phase(num, fex, sex, nrhs, launches):
     from spllt_tpu_torch.numeric import (hopper_potrf, hopper_solve,
                                          hopper_trsm, hopper_update)
-    from spllt_tpu_torch.numeric._build import KERNEL_SOURCES
-
     rng = np.random.default_rng(SEED + 1)
     nb = 128
     f32, f64 = torch.float32, torch.float64
@@ -377,41 +498,9 @@ def kernel_phase(num, fex, sex, nrhs, launches):
     # launches' bounds.
     esz = 4
 
-    class Acc:
-        def __init__(self):
-            self.n = 0
-            self.ms = self.pms = self.tb = self.to = 0.0
-            self.lms = None
-            self.bytes = self.flops = 0
-            self.mabs = self.rel = 0.0
-            self.kmax = 0
-
-        def add(self, batch, mabs, rel, ms, pms, lms, nbytes, flops):
-            self.n += 1
-            if lms is not None:
-                self.lms = (self.lms or 0.0) + lms
-            self.kmax = max(self.kmax, batch)
-            self.ms += ms
-            self.pms += pms
-            self.bytes += int(nbytes)
-            self.flops += int(flops)
-            tb, to = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
-            if tb >= to:
-                self.tb += tb
-            else:
-                self.to += to
-            self.mabs, self.rel = max(self.mabs, mabs), max(self.rel, rel)
-
     def row(name, src_key, replaces, acc, per, shape):
-        out.append(dict(
-            name=name, route="cuda",
-            source=f"spllt_tpu_torch/csrc/{KERNEL_SOURCES[src_key]}",
-            replaces=replaces, launches=launches[name],
-            max_abs_err=acc.mabs, rel_err=acc.rel, tol_rel=TOL32,
-            ms=acc.ms, plain_ms=acc.pms, bound_ms=(acc.tb + acc.to) * 1e3,
-            bound_by="bytes" if acc.tb >= acc.to else "operations",
-            library_ms=acc.lms, launches_timed=acc.n, per=per, shape=shape,
-            bytes=acc.bytes, flops=acc.flops))
+        out.append(kernel_row(name, src_key, replaces, acc, per, shape,
+                              launches, TOL32))
 
     # K1 potrf: each level's kv table, synthetic SPD tiles
     acc = Acc()
@@ -423,12 +512,7 @@ def kernel_phase(num, fex, sex, nrhs, launches):
         tiles = spd_tiles(rng, kvs, nb, f32)
         acc.add(len(kvs), *compare(
             "potrf", hopper_potrf.potrf, hopper_potrf.potrf_plain,
-            lambda: (tiles, kv_t), TOL32, 3),
-            # written whole, read only in the lower trapezoid of its
-            # columns < kv
-            len(kvs) * (nb * nb * esz + 4)
-            + int(trapezoid(kvs.astype(np.int64), nb).sum()) * esz,
-            sum(potrf_ops(int(k), nb) for k in kvs))
+            lambda: (tiles, kv_t), TOL32, 3), *potrf_work(kvs, nb, esz))
     row("potrf", "potrf", "spllt_tpu/numeric/pallas_potrf.py:167", acc,
         "factorization", f"tiles [K,{nb},{nb}], K up to {acc.kmax}")
 
@@ -455,10 +539,7 @@ def kernel_phase(num, fex, sex, nrhs, launches):
             lambda: (lt, dst, kv_t), TOL32, 3,
             lambda: torch.linalg.solve_triangular(lpad_t, dst, upper=True,
                                                   left=False)),
-            # read: the kv x kv lower triangle of L and the columns < kv of
-            # dst; written: one whole tile
-            int((kvs * (kvs + 1) // 2 + nb * kvs + nb * nb).sum()) * esz
-            + len(kvs) * 4, int((nb * kvs * kvs).sum()))
+            *trsm_work(kvs, nb, esz))
         del lt, dst, lpad_t
     row("trsm", "trsm", "spllt_tpu/numeric/pallas_trsm.py:122", acc,
         "factorization", f"pairs [K,{nb},{nb}], K up to {acc.kmax}")
@@ -487,11 +568,8 @@ def kernel_phase(num, fex, sex, nrhs, launches):
             lambda: hopper_update.apply_updates_plain(work, tasks), 3)
         w = update_level_work(tasks, nb)
         nseg_tot += w["segments"]
-        # read: the gathered source entries, each destination tile once and
-        # the task tables; written: each destination tile once
         acc.add(w["tasks"], mabs, rel, ms, pms, None,
-                w["gathered"] * esz + 2 * w["segments"] * nb * nb * esz
-                + w["tasks"] * (2 * nb + 5) * 4, w["unmasked_trimmed_k"])
+                *update_work_bound(w, nb, esz))
     row("update", "update", "spllt_tpu/numeric/pallas_update.py:312", acc,
         "factorization",
         f"{fex.num_micro_tasks} micro-tasks in {nseg_tot} segments, up to "
@@ -536,6 +614,380 @@ def kernel_phase(num, fex, sex, nrhs, launches):
     return out, edge_out
 
 
+# --------------------------------------------------------------------- #
+# the stream kernels against their plain versions
+# --------------------------------------------------------------------- #
+def time_prepared_ms(prepare, fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` alone, with ``prepare`` run before every
+    call outside the timed region (CUDA events, after one warm-up)."""
+    prepare()
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        prepare()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def factor_stream_work(stream: dict, nb: int, esz: int):
+    """Per run of a factor stream (kind, work items, bytes, operations),
+    counted from the stream's own tables as the rows of the batched kernels
+    count them: UPD reads the unmasked gathered rows up to ``srcn``, each
+    destination tile once and the tables, and writes each destination tile
+    once; POTRF reads the lower trapezoid of its columns < kv and writes a
+    tile; TRSM reads the kv x kv triangle of L and the columns < kv of dst
+    and writes a tile."""
+    h = stream["host"]
+    aux = stream["aux"].cpu().numpy().astype(np.int64)
+    out = []
+    for r, kind in enumerate(h["run_kind"]):
+        t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
+        kvs = aux[t0:t1]
+        if kind == 0:
+            w = update_level_work(upd_run_tasks(stream, r), nb)
+            out.append((0, w["segments"], *update_work_bound(w, nb, esz)))
+        elif kind == 1:
+            out.append((1, t1 - t0, *potrf_work(kvs, nb, esz)))
+        else:
+            out.append((2, t1 - t0, *trsm_work(kvs, nb, esz)))
+    return out
+
+
+def solve_stream_work(stream: dict, nb: int, nrhs: int, esz: int):
+    """Per run of a solve stream (kind, work items, bytes, operations):
+    every factor tile the run names is read once (SOL/SOLT: its lower
+    trapezoid), every source window is read, every destination window is
+    read and written once per segment (SOL/SOLT: two windows written), plus
+    the tables."""
+    h = stream["host"]
+    aux = stream["aux"].cpu().numpy().astype(np.int64)
+    rel_valid = (stream["rel"] >= 0).sum(1).cpu().numpy().astype(np.int64)
+    win = nb * nrhs * esz
+    out = []
+    for r, kind in enumerate(h["run_kind"]):
+        t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
+        k = t1 - t0
+        nseg = max(0, int(h["run_seg"][r + 1]) - int(h["run_seg"][r]) - 1)
+        if kind == 0:
+            off = int(h["run_rel"][r])
+            rows = int(rel_valid[t0 - off:t1 - off].sum())
+            out.append((0, nseg, rows * nrhs * esz + 2 * nseg * win
+                        + k * (nb + 4) * 4, rows * nrhs))
+        elif kind in (1, 2):
+            out.append((int(kind), nseg, k * (nb * nb * esz + win)
+                        + 2 * nseg * win + k * 16,
+                        k * 2 * nb * nb * nrhs))
+        else:
+            kvs = aux[t0:t1]
+            out.append((int(kind), k,
+                        int(trapezoid(kvs, nb).sum()) * esz + 3 * k * win
+                        + k * 16,
+                        int((nrhs * kvs * kvs
+                             + 2 * nrhs * (nb - kvs) * kvs).sum())))
+    return out
+
+
+def add_bound(acc: Acc, work) -> None:
+    """Add the bounds of the runs ``work`` (kind, items, bytes, operations)
+    to ``acc``."""
+    for _, _, nbytes, flops in work:
+        acc.bound(nbytes, flops)
+
+
+def factor_run_times(fex, pool0: torch.Tensor, work) -> dict:
+    """Time of each run of the factor stream, as the difference of the times
+    of the stream cut after that run and after the one before (one call
+    each, on a fresh copy of the assembled pool), summed by kind and over
+    the runs that have fewer work items than the kernel has blocks."""
+    from spllt_tpu_torch.numeric.megakernel import mega_factorize
+
+    stream = fex.stream
+    buf = torch.empty_like(pool0)
+    prev, by_kind, narrow_ms, narrow_runs = 0.0, [0.0, 0.0, 0.0], 0.0, 0
+    nruns = len(work)
+    for r in range(1, nruns + 1):
+        cut = dict(stream, run_kind=stream["run_kind"][:r])
+        t = time_prepared_ms(lambda: buf.copy_(pool0),
+                             lambda: mega_factorize(buf.view(-1, fex.nb),
+                                                    cut), 1)
+        grid = mega_factorize.last_grid
+        dt = max(t - prev, 0.0)
+        prev = t
+        kind, items = work[r - 1][0], work[r - 1][1]
+        by_kind[kind] += dt
+        if items < grid:
+            narrow_ms += dt
+            narrow_runs += 1
+    return dict(runs=nruns, blocks=grid, whole_ms=prev,
+                upd_ms=by_kind[0], potrf_ms=by_kind[1], trsm_ms=by_kind[2],
+                runs_with_fewer_items_than_blocks=narrow_runs,
+                ms_in_those_runs=narrow_ms)
+
+
+def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
+                      run_times: bool):
+    """K4 and K6 at the shapes the stream main path gave them: the factor
+    stream of ``fex`` on the assembled pool of ``num`` against its plain
+    version and against the level executor's factor ``scan_pool``; each
+    solve direction against its plain version at nrhs 1, ``nrhs`` and 64.
+    Returns (kernel rows, details)."""
+    from spllt_tpu_torch.numeric import megakernel, solve_mega
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+
+    nb, esz = fex.nb, 4
+    TOL32 = 1e-5        # of max|ref|: other summation order, sqrt/division
+    rng = np.random.default_rng(SEED + 2)
+    rows, detail = [], {}
+
+    # ---- K4 ---- #
+    pool0 = assemble_torch(num.plan, num.values_perm, torch.float32,
+                           num.pool.device)
+    got = pool0.clone()
+    megakernel.mega_factorize(got.view(-1, nb), fex.stream)
+    ref = pool0.clone()
+    megakernel.mega_factorize_plain(ref.view(-1, nb), fex.stream)
+    torch.cuda.synchronize()
+    acc = Acc()
+    acc.mabs, acc.rel = rel_err(got, ref)
+    require(acc.rel <= TOL32, f"mega_factor: kernel differs from the plain "
+                              f"version: rel {acc.rel} > {TOL32}")
+    vs_scan = rel_err(got, scan_pool)
+    require(vs_scan[1] <= TOL32, f"mega_factor: differs from the level "
+                                 f"executor's factor: rel {vs_scan[1]}")
+    vs_api = rel_err(got, num.pool)
+    require(vs_api[0] == 0.0, "mega_factor is not deterministic: the same "
+                              "stream on the same pool gave another factor")
+    del ref
+    buf = got
+    acc.n = 1
+    acc.ms = time_prepared_ms(
+        lambda: buf.copy_(pool0),
+        lambda: megakernel.mega_factorize(buf.view(-1, nb), fex.stream), 3)
+    acc.pms = time_prepared_ms(
+        lambda: buf.copy_(pool0),
+        lambda: megakernel.mega_factorize_plain(buf.view(-1, nb),
+                                                fex.stream), 1)
+    work = factor_stream_work(fex.stream, nb, esz)
+    add_bound(acc, work)
+    rows.append(kernel_row(
+        "mega_factor", "mega_factor", "spllt_tpu/numeric/megakernel.py:637",
+        acc, "factorization",
+        f"{fex.num_tasks} tasks in {fex.num_runs} runs, pool "
+        f"[{fex.pool_rows},{nb}], {megakernel.mega_factorize.last_grid} "
+        f"blocks", launches, TOL32))
+    detail["mega_factor"] = dict(
+        vs_level_executor_rel=vs_scan[1], vs_level_executor_max_abs=vs_scan[0],
+        update_tasks=int(fex.stream["relr"].shape[0]))
+    if run_times:
+        detail["mega_factor"]["run_times"] = factor_run_times(fex, pool0,
+                                                              work)
+    del buf, got, pool0
+
+    # ---- K6 ---- #
+    poolf = num.pool.view(-1, nb)
+    acc = Acc()
+    per_nrhs = {}
+    for r_ in sorted({1, nrhs, 64}):
+        x = torch.zeros((num.symb.n + 1, r_), dtype=torch.float32,
+                        device="cuda")
+        x[:-1] = torch.as_tensor(
+            rng.standard_normal((num.symb.n, r_), dtype=np.float32),
+            device="cuda")
+        w0 = sex._work(x)
+        buf = torch.empty_like(w0)
+        for d, tag in ((0, "fwd"), (1, "bwd")):
+            st_d = sex._streams[d]
+            got = solve_mega.mega_solve(poolf, w0.clone(), st_d)
+            ref = solve_mega.mega_solve_plain(poolf, w0.clone(), st_d)
+            torch.cuda.synchronize()
+            mabs, rel = rel_err(got, ref)
+            require(rel <= TOL32, f"mega_solve {tag} nrhs={r_}: kernel "
+                                  f"differs from the plain version: rel "
+                                  f"{rel} > {TOL32}")
+            ms = time_prepared_ms(
+                lambda: buf.copy_(w0),
+                lambda: solve_mega.mega_solve(poolf, buf, st_d), 3)
+            pms = time_prepared_ms(
+                lambda: buf.copy_(w0),
+                lambda: solve_mega.mega_solve_plain(poolf, buf, st_d), 1)
+            per_nrhs[f"{tag}_nrhs{r_}"] = dict(
+                max_abs=mabs, rel=rel, ms=ms, plain_ms=pms,
+                runs=len(st_d["host"]["run_kind"]),
+                tasks=int(st_d["dst"].shape[0]),
+                blocks=solve_mega.mega_solve.last_grid)
+            if r_ == nrhs:          # the row: one forward + backward sweep
+                acc.n += 1
+                acc.ms += ms
+                acc.pms += pms
+                acc.mabs, acc.rel = max(acc.mabs, mabs), max(acc.rel, rel)
+                add_bound(acc, solve_stream_work(st_d, nb, r_, esz))
+            del got, ref
+        del w0, buf, x
+    rows.append(kernel_row(
+        "mega_solve", "mega_solve", "spllt_tpu/numeric/solve_mega.py:432",
+        acc, "forward+backward sweep",
+        f"work [{sex.work_rows},{nrhs}], pool [{sex.pool_rows},{nb}]",
+        launches, TOL32))
+    detail["mega_solve"] = per_nrhs
+    return rows, detail
+
+
+def edge_stream_phase():
+    """The stream kernels on small and on hand-made streams with 1, 3 and
+    all blocks: more items than blocks, fewer items than blocks, a
+    destination segment of many tasks, kv = 0 and kv = nb tiles, an empty
+    run, ragged rhs chunks.  Every run must equal the plain version to the
+    tolerance, and the runs with fewer blocks must equal the full one bit
+    for bit (no result depends on which block took an item)."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.api import _plans
+    from spllt_tpu_torch.numeric import megakernel as mk
+    from spllt_tpu_torch.numeric import solve_mega as sm
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+    from spllt_tpu_torch.numeric.hopper_potrf import potrf_plain
+    from spllt_tpu_torch.plan.solve_mega import build_solve_mega_plan
+
+    rng = np.random.default_rng(SEED + 3)
+    tols = {torch.float32: 1e-5, torch.float64: 1e-11}
+    out = {}
+
+    def check(tag, run_kernel, run_plain, dtype):
+        """run_kernel(max_blocks) / run_plain() each return a new tensor."""
+        ref = run_plain()
+        full = run_kernel(0)
+        for mb in (1, 3, 0):
+            got = run_kernel(mb)
+            torch.cuda.synchronize()
+            mabs, rel = rel_err(got, ref)
+            require(rel <= tols[dtype], f"edge stream {tag}, max_blocks="
+                                        f"{mb}: rel err {rel}")
+            same = torch.equal(torch.nan_to_num(got), torch.nan_to_num(full))
+            require(same, f"edge stream {tag}: {mb} blocks and all blocks "
+                          f"gave different results")
+            out[f"{tag}_blocks{mb or 'all'}"] = {"max_abs": mabs, "rel": rel}
+
+    # ---- real small problems through both stream kernels ---- #
+    for tag, a, kw, dtype in (
+            ("p3d8_nb128_f32", st.poisson3d(8),
+             dict(ordering="nd-grid", grid_shape=(8, 8, 8), nb=128,
+                  nemin=192), torch.float32),
+            ("p2d12_nb8_f32", st.poisson2d(12),
+             dict(ordering="nd", nb=8, nemin=4), torch.float32),
+            ("p2d12_nb8_f64", st.poisson2d(12),
+             dict(ordering="nd", nb=8, nemin=4), torch.float64)):
+        symb = st.analyse(a, st.Options(**kw))
+        plan, fplan, _ = _plans(symb, symb.options)
+        nb = plan.nb
+        rows_ = (plan.nblocks + 1) * nb
+        stream = mk.stream_to_device(mk.build_mega_stream(fplan, rows_),
+                                     "cuda")
+        pool0 = assemble_torch(plan, symb.a_perm.values, dtype, "cuda")
+        check(f"factor_{tag}",
+              lambda mb: mk.mega_factorize(pool0.clone().view(-1, nb),
+                                           stream, max_blocks=mb),
+              lambda: mk.mega_factorize_plain(pool0.clone().view(-1, nb),
+                                              stream), dtype)
+        poolf = mk.mega_factorize_plain(pool0.clone().view(-1, nb), stream)
+        smp = build_solve_mega_plan(symb, plan)
+        for r_ in (3, 70):
+            w0 = torch.as_tensor(rng.standard_normal((smp.P + smp.X, r_)),
+                                 dtype=dtype, device="cuda")
+            w0[:smp.P] = 0
+            for d, runs in (("fwd", smp.fwd_runs), ("bwd", smp.bwd_runs)):
+                st_d = sm.stream_to_device(
+                    sm.solve_stream(runs, nb, rows_, smp.P + smp.X), "cuda")
+                check(f"solve_{d}_{tag}_nrhs{r_}",
+                      lambda mb: sm.mega_solve(poolf, w0.clone(), st_d,
+                                               max_blocks=mb),
+                      lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
+                      dtype)
+
+    # ---- hand-made streams ---- #
+    for tag, dtype, nb, kv3 in (("f32_nb128", torch.float32, 128, 37),
+                                ("f64_nb48", torch.float64, 48, 17),
+                                ("f32_nb256", torch.float32, 256, 200)):
+        nblk = 12
+        rows_ = nblk * nb
+        kvs = [0, nb, kv3]
+        pool0 = torch.as_tensor(rng.standard_normal((nblk, nb, nb)),
+                                dtype=dtype, device="cuda")
+        pool0[:3] = spd_tiles(rng, kvs, nb, dtype)
+        seg_len = [1, 11, 3]
+        kk = sum(seg_len)
+        lo = rng.integers(6 * nb, rows_ - nb + 1, size=(2, kk))
+        lo[0, 1] = lo[1, 2] = rows_ - nb          # windows at the pool's end
+        relr = rng.integers(-1, nb, size=(kk, nb))
+        relc = rng.integers(-1, nb, size=(kk, nb))
+        relr[1, :] = -1
+        relr[1, 5] = 7                            # nearly empty task
+        blkn = rng.integers(1, nb + 1, size=kk)
+        srcn = rng.integers(0, nb + 1, size=kk)
+        srcn[0], srcn[3], srcn[4] = nb, 0, 1
+        none = np.empty(0, np.int64)
+        zeros3 = np.zeros(3, np.int64)
+        tile = lambda *ids: np.asarray(ids, np.int64) * nb
+        pairs_d, pairs_t = [1, 2, 0, 1, 1, 2], [3, 4, 5, 6, 7, 8]
+        stream = mk.stream_to_device(mk.assemble_stream([
+            (mk.KIND_UPD, {"wr": lo[0], "wc": lo[1],
+                           "dst": np.repeat(tile(3, 4, 5), seg_len),
+                           "aux": blkn, "srcn": srcn}, relr, relc),
+            (mk.KIND_POTRF, {k: none for k in ("wr", "wc", "dst", "aux",
+                                               "srcn")}, None, None),
+            (mk.KIND_POTRF, {"wr": tile(0, 1, 2), "wc": tile(0, 1, 2),
+                             "dst": tile(0, 1, 2), "aux": np.asarray(kvs),
+                             "srcn": zeros3}, None, None),
+            (mk.KIND_TRSM, {"wr": tile(*pairs_d), "wc": tile(*pairs_t),
+                            "dst": tile(*pairs_t),
+                            "aux": np.asarray([kvs[i] for i in pairs_d]),
+                            "srcn": np.zeros(6, np.int64)}, None, None),
+        ], nb, rows_), "cuda")
+        check(f"factor_handmade_{tag}",
+              lambda mb: mk.mega_factorize(pool0.clone().view(-1, nb),
+                                           stream, max_blocks=mb),
+              lambda: mk.mega_factorize_plain(pool0.clone().view(-1, nb),
+                                              stream), dtype)
+        # solve: windows 0..9 of a random work array, tiles 0..2 factored
+        kv_t = torch.as_tensor(np.asarray(kvs, np.int32), device="cuda")
+        poolf = pool0.clone()
+        poolf[:3] = potrf_plain(pool0[:3], kv_t)
+        poolf = poolf.view(-1, nb)
+        wrows = 10 * nb
+        rel = rng.integers(-1, nb, size=(4, nb))
+        zrel = np.zeros((3, nb), np.int32)
+        runs = [
+            dict(kind=0, wA=tile(11, 11, 11, 11), wS=tile(5, 6, 7, 8),
+                 dst=tile(0, 0, 0, 1), aux=np.zeros(4, np.int64), rel=rel),
+            dict(kind=1, wA=none, wS=none, dst=none, aux=none,
+                 rel=np.empty((0, nb), np.int32)),
+            dict(kind=1, wA=tile(3, 4, 5), wS=tile(5, 6, 7),
+                 dst=tile(2, 2, 3), aux=zeros3, rel=zrel),
+            dict(kind=2, wA=tile(6, 7, 8), wS=tile(0, 1, 2),
+                 dst=tile(4, 4, 4), aux=zeros3, rel=zrel),
+            dict(kind=3, wA=tile(0, 1, 2), wS=tile(0, 1, 2),
+                 dst=tile(7, 8, 9), aux=np.asarray(kvs), rel=zrel),
+            dict(kind=4, wA=tile(2, 1, 0), wS=tile(3, 4, 5),
+                 dst=tile(6, 7, 8), aux=np.asarray(kvs[::-1]), rel=zrel),
+        ]
+        st_d = sm.stream_to_device(sm.solve_stream(runs, nb, rows_, wrows),
+                                   "cuda")
+        for r_ in (3, 70):
+            w0 = torch.as_tensor(rng.standard_normal((wrows, r_)),
+                                 dtype=dtype, device="cuda")
+            check(f"solve_handmade_{tag}_nrhs{r_}",
+                  lambda mb: sm.mega_solve(poolf, w0.clone(), st_d,
+                                           max_blocks=mb),
+                  lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
+                  dtype)
+    return out
+
+
 def profile_main_path(num, fex, sex, nrhs, path):
     """Kernel-time breakdown of one factorization and one forward+backward
     sweep by torch.profiler, written to ``path`` (device time by kernel
@@ -570,7 +1022,8 @@ def profile_main_path(num, fex, sex, nrhs, path):
             ours = {k: sum(e.self_device_time_total for e in ka
                            if e.device_type == DeviceType.CUDA
                            and "::" + k + "_" in e.key) / 1e3
-                    for k in ("potrf", "trsm", "update", "left_solve")}
+                    for k in ("potrf", "trsm", "update", "left_solve",
+                              "mega_factor", "mega_solve")}
             shares[tag] = {"device_kernel_ms": dev_ms,
                            "by_hand_kernel_ms": {k: v for k, v in
                                                  ours.items() if v}}
@@ -585,7 +1038,7 @@ def profile_main_path(num, fex, sex, nrhs, path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-large", action="store_true",
-                    help="skip the poisson3d(64) main-path run")
+                    help="skip the poisson3d(64) main-path runs")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -606,27 +1059,55 @@ def main() -> int:
          cuda=torch.version.cuda)
     emit("build", seconds=build_all())
 
-    rec, num, fex, sex = main_path(32, card, full_checks=True)
+    # level path (schedule='scan') and its four kernels
+    rec, num, fex, sex = main_path(32, card, True, "scan")
     emit("main_path", **rec)
-
     kernels, edge = kernel_phase(num, fex, sex, rec["nrhs"],
                                  rec["launches"])
     emit("kernel_edge_cases", card=card, **edge)
     if args.profile:
-        emit("profile", card=card, matrix=rec["matrix"], file=args.profile,
+        emit("profile", card=card, matrix=rec["matrix"], schedule="scan",
+             file=args.profile,
              **profile_main_path(num, fex, sex, rec["nrhs"], args.profile))
+    scan_pool = num.pool
     del num, fex, sex
+
+    # stream path (schedule='mega') and its two kernels
+    rec, num, fex, sex = main_path(32, card, True, "mega")
+    emit("main_path", **rec)
+    rows, detail = mega_kernel_phase(num, fex, sex, scan_pool, rec["nrhs"],
+                                     rec["launches"], run_times=True)
+    kernels += rows
+    emit("stream_kernels", card=card, matrix=rec["matrix"], **detail)
+    emit("stream_edge_cases", card=card, **edge_stream_phase())
+    if args.profile:
+        emit("profile", card=card, matrix=rec["matrix"], schedule="mega",
+             file=args.profile + ".mega",
+             **profile_main_path(num, fex, sex, rec["nrhs"],
+                                 args.profile + ".mega"))
+    del num, fex, sex, scan_pool
     torch.cuda.empty_cache()
 
     if not args.no_large:
-        rec64, num, fex, sex = main_path(64, card, full_checks=False)
-        emit("main_path", **rec64)
-        if args.profile:
-            emit("profile", card=card, matrix=rec64["matrix"],
-                 file=args.profile + ".large",
-                 **profile_main_path(num, fex, sex, rec64["nrhs"],
-                                     args.profile + ".large"))
-        del num, fex, sex
+        for schedule in ("scan", "mega"):
+            rec64, num, fex, sex = main_path(64, card, False, schedule)
+            emit("main_path", **rec64)
+            if schedule == "mega":
+                from spllt_tpu_torch.numeric.assemble import assemble_torch
+
+                pool0 = assemble_torch(num.plan, num.values_perm,
+                                       torch.float32, num.pool.device)
+                emit("stream_run_times", card=card, matrix=rec64["matrix"],
+                     **factor_run_times(
+                         fex, pool0, factor_stream_work(fex.stream, 128, 4)))
+                del pool0
+            if args.profile:
+                path = f"{args.profile}.large.{schedule}"
+                emit("profile", card=card, matrix=rec64["matrix"],
+                     schedule=schedule, file=path,
+                     **profile_main_path(num, fex, sex, rec64["nrhs"], path))
+            del num, fex, sex
+            torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("elapsed", seconds=time.perf_counter() - t_start)

@@ -68,10 +68,6 @@ def _check_ported(options: Options) -> None:
         raise NotImplementedError(
             "not ported yet: Options(coarse_subtrees=True) (dense leaf "
             "subtrees)")
-    if options.mode == "batched" and options.schedule == "mega":
-        raise NotImplementedError(
-            "not ported yet: Options(schedule='mega') (stream megakernels); "
-            "use schedule='scan'")
 
 
 def _resolve_device(options: Options) -> torch.device:
@@ -103,9 +99,34 @@ def _plans(symb: SymbolicFactor, options: Options):
     return cache[key]
 
 
+def _solve_mega_plan(symb: SymbolicFactor, plan: BlockPlan):
+    """The solve stream plan of (symb, blocking) — cached beside the other
+    plans, so a refactorization or another nrhs rebuilds nothing."""
+    from .plan.solve_mega import build_solve_mega_plan
+
+    key = ("smplan", plan.nb)
+    if key not in symb._cache:
+        symb._cache[key] = build_solve_mega_plan(symb, plan)
+    return symb._cache[key]
+
+
 def _exec_key(kind: str, options: Options, dev: torch.device):
-    # 'scan' and 'unrolled' share the level executors
-    return (kind, options.nb, options.dtype, options.precision, str(dev))
+    # 'scan' and 'unrolled' share the level executors; 'mega' has its own
+    family = "mega" if options.schedule == "mega" else "level"
+    return (kind, family, options.nb, options.dtype, options.precision,
+            str(dev))
+
+
+def _factor_executor(fplan: FactorPlan, options: Options, dtype, dev):
+    """The stream executor for schedule='mega', else the level executor.
+    Both pool dtypes and every nb are eligible for either, so the schedule
+    alone decides, here, once; nothing falls back from one to the other."""
+    if options.schedule == "mega":
+        from .numeric.megakernel import MegaFactorExecutor as Executor
+    else:
+        from .numeric.factor_scan import ScanFactorExecutor as Executor
+    return Executor(fplan, dtype=dtype, matmul_precision=options.precision,
+                    device=dev)
 
 
 def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
@@ -133,7 +154,6 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
         solve_execs = {}
     else:
         from .numeric.assemble import assemble_torch
-        from .numeric.factor_scan import ScanFactorExecutor
 
         dev = _resolve_device(options)
         dtype = _torch_dtype(options)
@@ -142,10 +162,8 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
         ekey = _exec_key("fex", options, dev)
         ex = symb._cache.get(ekey)
         if ex is None:
-            ex = ScanFactorExecutor(fplan, dtype=dtype,
-                                    matmul_precision=options.precision,
-                                    device=dev)
-            symb._cache[ekey] = ex
+            ex = symb._cache[ekey] = _factor_executor(fplan, options, dtype,
+                                                      dev)
         pool = assemble_torch(plan, values, dtype, dev)
         pool, notpos = ex(pool)
         # positive-definiteness flag computed on the device (one scalar
@@ -241,17 +259,25 @@ def _solve_refined_device(num: NumericFactor, bb: np.ndarray,
 
 
 def _solve_executor(num: NumericFactor, nrhs: int):
-    """Level solve executor for ``nrhs`` (cached beside the factor
-    executor, shared by every factorization of the pattern)."""
+    """Solve executor for ``nrhs`` (cached beside the factor executor,
+    shared by every factorization of the pattern): the stream executor for
+    schedule='mega', else the level executor."""
     key = (nrhs,)
     ex = num._solve_execs.get(key)
-    if ex is None:
+    if ex is not None:
+        return ex
+    kw = dict(dtype=num.pool.dtype, matmul_precision=num.options.precision,
+              device=num.pool.device)
+    if num.options.schedule == "mega":
+        from .numeric.solve_mega import MegaSolveExecutor
+
+        ex = MegaSolveExecutor(num.symb, num.plan, nrhs,
+                               smp=_solve_mega_plan(num.symb, num.plan), **kw)
+    else:
         from .numeric.solve_scan import ScanSolveExecutor
 
-        ex = ScanSolveExecutor(num.splan, nrhs, dtype=num.pool.dtype,
-                               matmul_precision=num.options.precision,
-                               device=num.pool.device)
-        num._solve_execs[key] = ex
+        ex = ScanSolveExecutor(num.splan, nrhs, **kw)
+    num._solve_execs[key] = ex
     return ex
 
 

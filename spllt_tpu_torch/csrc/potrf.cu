@@ -22,138 +22,30 @@
 // trapezoid right of the panel.  Three block barriers per 8 columns.  A
 // non-positive (or NaN) pivot marks the tile as failed and the whole output
 // tile becomes NaN, which is what the caller's not-positive-definite guard
-// looks for.
-#include <cuda_runtime.h>
+// looks for.  The elimination itself is potrf_tile in potrf_body.cuh, which
+// the factor stream kernel (mega_factor.cu) runs too.
+#include "potrf_body.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;
-constexpr int P = 8;               // panel width
-constexpr unsigned kFull = 0xffffffffu;
+using namespace spllt;
 
 template <typename T>
 __global__ void potrf_kernel(const T* __restrict__ in, T* __restrict__ out,
                              const int* __restrict__ kvec, int nb,
                              int in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);   // [P][nb] solved panel, by column
-  T* dd = pan + P * nb;                      // [P][P] factored diagonal block
-  int* sbad = reinterpret_cast<int*>(dd + P * P);
   const size_t off = (size_t)blockIdx.x * nb * nb;
-  const T* a = in + off;
-  T* o = out + off;
-  T* w = in_smem ? dd + P * P + 4 : o;       // 4 elements hold the flag
-  // padded rows in shared memory keep column reads off one bank
-  const int ld = in_smem ? nb + 1 : nb;
-  const int kv = kvec[blockIdx.x];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
-
-  if (tid == 0) *sbad = 0;
-  // masked lower seed: columns < kv, rows >= column (nothing else is read
-  // during the elimination)
-  for (int idx = tid; idx < nb * kv; idx += nt) {
-    const int i = idx / kv, c = idx - i * kv;
-    if (i >= c) w[i * ld + c] = a[i * nb + c];
-  }
-  __syncthreads();
-
-  for (int j0 = 0; j0 < kv; j0 += P) {
-    const int pw = min(P, kv - j0);
-    // ---- diagonal block: warp 0, lane l holds row j0 + l ---------------- //
-    if (warp == 0) {
-      T d[P];
-#pragma unroll
-      for (int jj = 0; jj < P; ++jj)
-        d[jj] = (lane < pw && jj <= lane) ? w[(j0 + lane) * ld + j0 + jj]
-                                          : T(0);
-      bool bad = false;
-#pragma unroll
-      for (int jj = 0; jj < P; ++jj) {
-        if (jj < pw) {
-          const T piv = __shfl_sync(kFull, d[jj], jj);
-          bad |= !(piv > T(0));            // catches <= 0 and NaN
-          const T s = sqrt(piv);
-          d[jj] = lane == jj ? s : d[jj] / s;
-#pragma unroll
-          for (int c = jj + 1; c < P; ++c) {
-            const T lc = __shfl_sync(kFull, d[jj], c);
-            if (lane >= c) d[c] -= d[jj] * lc;
-          }
-        }
-      }
-      if (lane < pw) {
-#pragma unroll
-        for (int jj = 0; jj < P; ++jj) {
-          dd[lane * P + jj] = d[jj];
-          if (jj <= lane) w[(j0 + lane) * ld + j0 + jj] = d[jj];
-        }
-      }
-      if (bad && lane == 0) *sbad = 1;
-    }
-    __syncthreads();
-    // ---- rows below the block: x * Ldd^T = panel row, in registers ------ //
-    for (int i = j0 + pw + tid; i < nb; i += nt) {
-      T x[P];
-#pragma unroll
-      for (int jj = 0; jj < P; ++jj)
-        x[jj] = jj < pw ? w[i * ld + j0 + jj] : T(0);
-#pragma unroll
-      for (int jj = 0; jj < P; ++jj) {
-        if (jj < pw) {
-          T s = x[jj];
-#pragma unroll
-          for (int q = 0; q < jj; ++q) s -= x[q] * dd[jj * P + q];
-          x[jj] = s / dd[jj * P + jj];
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < P; ++jj) {
-        if (jj < pw) w[i * ld + j0 + jj] = x[jj];
-        pan[jj * nb + i] = x[jj];
-      }
-    }
-    __syncthreads();
-    // ---- rank-pw update of the trapezoid right of the panel ------------- //
-    if (j0 + pw < kv) {
-      for (int i = j0 + pw + warp; i < nb; i += nwarp) {
-        T pi[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) pi[p] = pan[p * nb + i];
-        const int cend = i < kv - 1 ? i : kv - 1;
-        for (int c = j0 + pw + lane; c <= cend; c += 32) {
-          T s = T(0);
-#pragma unroll
-          for (int p = 0; p < P; ++p) s += pi[p] * pan[p * nb + c];
-          w[i * ld + c] -= s;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  __syncthreads();
-  if (*sbad) {
-    // a failed tile is NaN everywhere, as a failed library Cholesky leaves
-    // it: the caller's guard reads element [0, 0] of every tile
-    const T qnan = sqrt(T(-1));
-    for (int idx = tid; idx < nb * nb; idx += nt) o[idx] = qnan;
-  } else {
-    for (int idx = tid; idx < nb * nb; idx += nt) {
-      const int i = idx / nb, c = idx - i * nb;
-      o[idx] = (c < kv && i >= c) ? w[i * ld + c] : T(0);
-    }
-  }
+  potrf_tile<T>(in + off, out + off, kvec[blockIdx.x], nb, in_smem, smem_raw,
+                threadIdx.x, blockDim.x);
 }
 
 template <typename T>
 int launch(const void* in, void* out, const int* kvec, int k, int nb,
            void* stream) {
   if (k <= 0) return 0;
-  size_t small = (size_t)(P * nb + P * P + 4) * sizeof(T);
-  size_t full = small + (size_t)nb * (nb + 1) * sizeof(T);
-  int in_smem = full <= (size_t)kMaxSmem;
-  size_t smem = in_smem ? full : small;
+  int in_smem = potrf_smem<T>(nb, true) <= (size_t)kMaxSmem;
+  size_t smem = potrf_smem<T>(nb, in_smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         potrf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -19,13 +19,14 @@
 // walks are conflict free) when it fits beside the rhs chunk, otherwise it
 // is read from global memory.  The rhs chunk lives in shared memory and
 // turns into y in place; the rectangular part (rows >= kv) is one pass
-// without barriers, the triangle takes two barriers per column.
-#include <cuda_runtime.h>
+// without barriers, the triangle takes two barriers per column.  The solve
+// itself is left_solve_tile in solve_body.cuh, which the solve stream kernel
+// (mega_solve.cu) runs too.
+#include "solve_body.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;
-constexpr int kRhsChunk = 64;
+using namespace spllt;
 
 template <typename T>
 __global__ void left_solve_kernel(const T* __restrict__ tiles,
@@ -34,82 +35,20 @@ __global__ void left_solve_kernel(const T* __restrict__ tiles,
                                   int nrhs, int transpose, int in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c0 = blockIdx.y * kRhsChunk;
-  const int rc = min(kRhsChunk, nrhs - c0);
-  T* zs = reinterpret_cast<T*>(smem_raw);          // [nb, rc]
-  const T* tile = tiles + (size_t)blockIdx.x * nb * nb;
-  const T* zin = z + (size_t)blockIdx.x * nb * nrhs + c0;
-  T* yout = y + (size_t)blockIdx.x * nb * nrhs + c0;
-  const int kv = kvec[blockIdx.x];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int ld = in_smem ? nb + 1 : nb;
-  const T* m = tile;
-  if (in_smem) {
-    T* ms = zs + nb * min(kRhsChunk, nrhs);
-    for (int idx = tid; idx < nb * nb; idx += nt) {
-      const int i = idx / nb, c = idx - i * nb;
-      if (c < kv) ms[i * ld + c] = tile[idx];
-    }
-    m = ms;
-  }
-  for (int idx = tid; idx < nb * rc; idx += nt) {
-    const int i = idx / rc, r = idx - i * rc;
-    zs[idx] = zin[(size_t)i * nrhs + r];
-  }
-  __syncthreads();
-
-  if (!transpose) {
-    for (int j = 0; j < kv; ++j) {
-      const T piv = m[j * ld + j];
-      for (int r = tid; r < rc; r += nt) zs[j * rc + r] /= piv;
-      __syncthreads();
-      for (int idx = tid; idx < (kv - j - 1) * rc; idx += nt) {
-        const int i = j + 1 + idx / rc, r = idx % rc;
-        zs[i * rc + r] -= m[i * ld + j] * zs[j * rc + r];
-      }
-      __syncthreads();
-    }
-    // rows >= kv: identity diagonal, below-row update from the solved part
-    for (int idx = tid; idx < (nb - kv) * rc; idx += nt) {
-      const int i = kv + idx / rc, r = idx % rc;
-      T acc = zs[i * rc + r];
-      for (int j = 0; j < kv; ++j) acc -= m[i * ld + j] * zs[j * rc + r];
-      zs[i * rc + r] = acc;
-    }
-  } else {
-    // rows >= kv pass through; fold them into the rows < kv
-    for (int idx = tid; idx < kv * rc; idx += nt) {
-      const int i = idx / rc, r = idx - i * rc;
-      T acc = zs[idx];
-      for (int j = kv; j < nb; ++j) acc -= m[j * ld + i] * zs[j * rc + r];
-      zs[idx] = acc;
-    }
-    __syncthreads();
-    for (int j = kv - 1; j >= 0; --j) {
-      const T piv = m[j * ld + j];
-      for (int r = tid; r < rc; r += nt) zs[j * rc + r] /= piv;
-      __syncthreads();
-      for (int idx = tid; idx < j * rc; idx += nt) {
-        const int i = idx / rc, r = idx - i * rc;
-        zs[idx] -= m[j * ld + i] * zs[j * rc + r];
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nb * rc; idx += nt) {
-    const int i = idx / rc, r = idx - i * rc;
-    yout[(size_t)i * nrhs + r] = zs[idx];
-  }
+  const size_t zoff = (size_t)blockIdx.x * nb * nrhs + c0;
+  left_solve_tile<T>(tiles + (size_t)blockIdx.x * nb * nb, z + zoff, y + zoff,
+                     (T*)nullptr, kvec[blockIdx.x], nb,
+                     min(kRhsChunk, nrhs - c0), nrhs, min(kRhsChunk, nrhs),
+                     transpose, in_smem, smem_raw, threadIdx.x, blockDim.x);
 }
 
 template <typename T>
 int launch(const void* tiles, const void* z, void* y, const int* kvec, int k,
            int nb, int nrhs, int transpose, void* stream) {
   if (k <= 0 || nrhs <= 0) return 0;
-  size_t zbytes = (size_t)nb * (nrhs < kRhsChunk ? nrhs : kRhsChunk) * sizeof(T);
-  size_t full = zbytes + (size_t)nb * (nb + 1) * sizeof(T);
-  int in_smem = full <= (size_t)kMaxSmem;
-  size_t smem = in_smem ? full : zbytes;
+  const int zcap = nrhs < kRhsChunk ? nrhs : kRhsChunk;
+  int in_smem = left_solve_smem<T>(nb, zcap, true) <= (size_t)kMaxSmem;
+  size_t smem = left_solve_smem<T>(nb, zcap, in_smem);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

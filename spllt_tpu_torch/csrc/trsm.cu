@@ -20,146 +20,33 @@
 // shared memory beside the dst rows (nb = 256 in float, the default tile
 // size), the same kernel reads L where it lies in global memory: every
 // thread of a warp reads the same words, so these are broadcast loads
-// through the read-only cache.
-#include <cuda_runtime.h>
+// through the read-only cache.  The substitution itself is trsm_rows in
+// trsm_body.cuh, which the factor stream kernel (mega_factor.cu) runs too.
+#include "trsm_body.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;
-
-constexpr int RBMAX = 128;  // most dst rows (threads) per block
-constexpr int P = 8;       // columns per register panel
-
-template <typename T>
-struct alignas(16) Vec4 { T v[4]; };
-
-// Four neighbouring entries of a row of L: one 16-byte load where the
-// address allows it (always in shared memory).
-template <typename T>
-__device__ __forceinline__ Vec4<T> load4(const T* __restrict__ p, bool vec) {
-  if (vec) return *reinterpret_cast<const Vec4<T>*>(p);
-  Vec4<T> r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.v[i] = p[i];
-  return r;
-}
-
-// acc[jj] -= sum_c x[c] * L[j0+jj][c] for c < j0, then the P x P triangle.
-// Only the lower part of L (c <= row) is read.
-// FULL: the whole panel lies below kv (no per-column guards).  LSMEM: ls is
-// the copy of L in shared memory.
-template <typename T, bool FULL, bool LSMEM>
-__device__ __forceinline__ void trsm_panel(const T* __restrict__ ls,
-                                           T* __restrict__ xs, int ld,
-                                           int rbp, int tid, int j0, int kv,
-                                           int nb, bool vec) {
-  T acc[P];
-#pragma unroll
-  for (int jj = 0; jj < P; ++jj)
-    acc[jj] = (FULL || j0 + jj < nb) ? xs[(j0 + jj) * rbp + tid] : T(0);
-  for (int c = 0; c < j0; c += 4) {
-    const T x0 = xs[c * rbp + tid], x1 = xs[(c + 1) * rbp + tid];
-    const T x2 = xs[(c + 2) * rbp + tid], x3 = xs[(c + 3) * rbp + tid];
-#pragma unroll
-    for (int jj = 0; jj < P; ++jj) {
-      if (FULL || j0 + jj < kv) {
-        const Vec4<T> l = load4(ls + (size_t)(j0 + jj) * ld + c, LSMEM || vec);
-        acc[jj] -= x0 * l.v[0];
-        acc[jj] -= x1 * l.v[1];
-        acc[jj] -= x2 * l.v[2];
-        acc[jj] -= x3 * l.v[3];
-      }
-    }
-  }
-#pragma unroll
-  for (int jj = 0; jj < P; ++jj) {
-    const int j = j0 + jj;
-    if (FULL || j < kv) {
-      const T xj = acc[jj] / ls[j * ld + j];
-      acc[jj] = xj;
-#pragma unroll
-      for (int j2 = jj + 1; j2 < P; ++j2)
-        if (FULL || j0 + j2 < kv) acc[j2] -= xj * ls[(j0 + j2) * ld + j];
-    } else {
-      acc[jj] = T(0);
-    }
-  }
-#pragma unroll
-  for (int jj = 0; jj < P; ++jj)
-    if (FULL || j0 + jj < nb) xs[(j0 + jj) * rbp + tid] = acc[jj];
-}
+using namespace spllt;
 
 template <typename T, bool LSMEM>
-__global__ void __launch_bounds__(RBMAX)
+__global__ void __launch_bounds__(kTrsmRbMax)
 trsm_rows_kernel(const T* __restrict__ diag, const T* __restrict__ dst,
                  T* __restrict__ out, const int* __restrict__ kvec,
                  int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* lsm = reinterpret_cast<T*>(smem_raw);  // [nb][ld] L, when it fits
-  const int ld = LSMEM ? (nb + 3) / 4 * 4 : nb;
-  // [nb][rb + 1] dst rows, by column
-  T* xs = lsm + (LSMEM ? (size_t)nb * ld : 0);
-  const int rb = blockDim.x, rbp = rb + 1;
   const size_t off = (size_t)blockIdx.x * nb * nb;
-  const T* l = diag + off;
-  const int r0 = blockIdx.y * rb;
-  const int kv = kvec[blockIdx.x];
-  const int tid = threadIdx.x;
-
-  const bool vec =
-      nb % 4 == 0 && reinterpret_cast<size_t>(l) % sizeof(Vec4<T>) == 0;
-  if (LSMEM)
-    for (int idx = tid; idx < kv * nb; idx += rb) {
-      const int j = idx / nb, c = idx - j * nb;
-      if (c <= j) lsm[j * ld + c] = l[idx];
-    }
-  for (int idx = tid; idx < rb * nb; idx += rb) {
-    const int rl = idx / nb, c = idx - rl * nb;
-    const int r = r0 + rl;
-    xs[c * rbp + rl] = (r < nb && c < kv) ? dst[off + (size_t)r * nb + c]
-                                          : T(0);
-  }
-  __syncthreads();
-
-  if (r0 + tid < nb) {
-    const T* ls = LSMEM ? lsm : l;
-    int j0 = 0;
-    for (; j0 + P <= kv; j0 += P)
-      trsm_panel<T, true, LSMEM>(ls, xs, ld, rbp, tid, j0, kv, nb, vec);
-    if (j0 < kv)
-      trsm_panel<T, false, LSMEM>(ls, xs, ld, rbp, tid, j0, kv, nb, vec);
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < rb * nb; idx += rb) {
-    const int rl = idx / nb, c = idx - rl * nb;
-    const int r = r0 + rl;
-    if (r < nb) out[off + (size_t)r * nb + c] = xs[c * rbp + rl];
-  }
+  const int rb = blockDim.x;
+  trsm_rows<T, LSMEM>(diag + off, dst + off, out + off, kvec[blockIdx.x], nb,
+                      blockIdx.y * rb, rb, smem_raw, threadIdx.x, rb);
 }
 
 template <typename T>
 int launch(const void* diag, const void* dst, void* out, const int* kvec,
            int k, int nb, void* stream) {
   if (k <= 0) return 0;
-  // as many dst rows per block as fit in shared memory beside the L tile,
-  // up to all of them; if not even 32 rows fit there, L stays in global
-  // memory and only the dst rows are staged
-  const int ld = (nb + 3) / 4 * 4;
-  int rb = RBMAX;
-  while (rb > 32 && rb / 2 >= nb) rb /= 2;          // small tiles
-  const int rb0 = rb;
-  auto smem_bytes = [&](int r, int l_in) {
-    return ((l_in ? (size_t)nb * ld : 0) + (size_t)nb * (r + 1)) * sizeof(T);
-  };
-  int l_in_smem = 1;
-  while (rb > 32 && smem_bytes(rb, 1) > (size_t)kMaxSmem) rb /= 2;
-  if (smem_bytes(rb, 1) > (size_t)kMaxSmem) {
-    l_in_smem = 0;
-    rb = rb0;
-    while (rb > 1 && smem_bytes(rb, 0) > (size_t)kMaxSmem) rb /= 2;
-  }
-  const size_t smem = smem_bytes(rb, l_in_smem);
+  int rb, l_in_smem;
+  trsm_config<T>(nb, (size_t)kMaxSmem, &rb, &l_in_smem);
+  const size_t smem = trsm_smem<T>(nb, rb, l_in_smem);
   auto kernel = l_in_smem ? trsm_rows_kernel<T, true>
                           : trsm_rows_kernel<T, false>;
   if (smem > 48 * 1024) {

@@ -37,180 +37,31 @@
 // 64-wide half of the piece whose rows (or columns) are all masked in a task
 // skips its share of the arithmetic, and so does a warp whose own
 // destination rows are all masked.  Within a level no destination tile is also a source,
-// so updating in place is safe.
-#include <cuda_runtime.h>
+// so updating in place is safe.  The segment loop itself is update_segment in
+// update_body.cuh, which the factor stream kernel (mega_factor.cu) runs too.
+#include "update_body.cuh"
 
 namespace {
 
-constexpr int BK = 8;      // contraction slab
-constexpr int NT = 256;    // threads per block, as a 16 x 16 grid
+using namespace spllt;
 
-template <typename T>
-struct alignas(16) Vec4 { T v[4]; };
-
-// TM x TN values per thread (multiples of 4), BM = 16*TM, BN = 16*TN.
-// Thread (tx, ty) owns rows  g*(BM/NVM) + ty*4 + q  and columns
-// g*(BN/NVN) + tx*4 + q  (g-th group of 4, q = 0..3): a warp reads one or
-// two 16-byte words of the R slab (broadcast) and 16 neighbouring 16-byte
-// words of the C slab, and writes neighbouring 16-byte pieces of dst rows.
 template <typename T, int TM, int TN>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(kUpdNT)
 update_kernel(T* __restrict__ pool, const int* __restrict__ seg_ptr,
               const int* __restrict__ dst, const int* __restrict__ lor,
               const int* __restrict__ loc, const int* __restrict__ blkn,
               const int* __restrict__ srcn, const int* __restrict__ relr,
               const int* __restrict__ relc, int nb) {
   constexpr int BM = 16 * TM, BN = 16 * TN;
-  constexpr int NVM = TM / 4, NVN = TN / 4;
-  constexpr int LDA = BM + 4, LDB = BN + 4;   // keep 16-byte alignment
-  constexpr int EA = BM * BK / NT, EB = BN * BK / NT;  // staged per thread
-  __shared__ __align__(16) T as[2][BK][LDA];
-  __shared__ __align__(16) T bs[2][BK][LDB];
-  __shared__ long long rowr[BM];   // source row of R row i, -1 = masked
-  __shared__ long long rowc[BN];
-  __shared__ int flags[2];         // per task: bit g = row group g has an
-                                   // unmasked row, bit NVM + h = column group
-
+  __shared__ UpdSmem<T, TM, TN> sm;
   const int seg = blockIdx.x;
   const int ntn = (nb + BN - 1) / BN;
-  const int i0 = (blockIdx.y / ntn) * BM;
-  const int j0 = (blockIdx.y % ntn) * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
   const int t0 = seg_ptr[seg], t1 = seg_ptr[seg + 1];
-
-  if (tid < 2) flags[tid] = 0;
-  __syncthreads();
-
-  T acc[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) acc[a][b] = T(0);
-
-  T ra[EA], rb[EB];   // next slab, on its way from global memory
-
-  for (int t = t0; t < t1; ++t) {
-    int* fl = &flags[(t - t0) & 1];
-    int bits = 0;
-    for (int e = tid; e < BM + BN; e += NT) {
-      if (e < BM) {
-        const int i = i0 + e;
-        const int rel = i < nb ? relr[(size_t)t * nb + i] : -1;
-        rowr[e] = rel >= 0 ? (long long)lor[t] + rel : -1;
-        if (rel >= 0) bits |= 1 << (e / (BM / NVM));
-      } else {
-        const int j = j0 + e - BM;
-        const int rel =
-            (j < nb && j < blkn[t]) ? relc[(size_t)t * nb + j] : -1;
-        rowc[e - BM] = rel >= 0 ? (long long)loc[t] + rel : -1;
-        if (rel >= 0) bits |= 1 << (NVM + (e - BM) / (BN / NVN));
-      }
-    }
-    if (bits) atomicOr(fl, bits);
-    // fences the row tables, the flags and the previous task's last reads
-    // of the slabs
-    __syncthreads();
-    const int live = *fl;
-    if (tid == 0) flags[(t - t0 + 1) & 1] = 0;     // for the next task
-    const int kn = min(srcn[t], nb);
-    const int nslab = (kn + BK - 1) / BK;
-    if (!(live & ((1 << NVM) - 1)) || !(live >> NVM) || nslab == 0) {
-      __syncthreads();          // the reset above must precede the next vote
-      continue;
-    }
-
-    // which of this thread's 4 x 4 blocks have work: row group g needs an
-    // unmasked row among this warp's rows, column group h among all columns
-    bool rg[NVM], cg[NVN];
-#pragma unroll
-    for (int g = 0; g < NVM; ++g) {
-      int mine = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        mine |= rowr[g * (BM / NVM) + ty * 4 + q] >= 0;
-      rg[g] = __any_sync(0xffffffffu, mine);
-    }
-#pragma unroll
-    for (int h = 0; h < NVN; ++h) cg[h] = (live >> (NVM + h)) & 1;
-
-    auto fetch = [&](int s) {   // slab s: global -> registers
-      const int k0 = s * BK;
-#pragma unroll
-      for (int e = 0; e < EA; ++e) {
-        const int idx = tid + e * NT, row = idx / BK, k = k0 + idx % BK;
-        const long long sr = rowr[row];
-        ra[e] = (sr >= 0 && k < kn) ? pool[(size_t)sr * nb + k] : T(0);
-      }
-#pragma unroll
-      for (int e = 0; e < EB; ++e) {
-        const int idx = tid + e * NT, row = idx / BK, k = k0 + idx % BK;
-        const long long sc = rowc[row];
-        rb[e] = (sc >= 0 && k < kn) ? pool[(size_t)sc * nb + k] : T(0);
-      }
-    };
-    auto stash = [&](int buf) {  // registers -> shared, k-major
-#pragma unroll
-      for (int e = 0; e < EA; ++e) {
-        const int idx = tid + e * NT;
-        as[buf][idx % BK][idx / BK] = ra[e];
-      }
-#pragma unroll
-      for (int e = 0; e < EB; ++e) {
-        const int idx = tid + e * NT;
-        bs[buf][idx % BK][idx / BK] = rb[e];
-      }
-    };
-
-    fetch(0);
-    stash(0);
-    __syncthreads();
-    for (int s = 0; s < nslab; ++s) {
-      const int buf = s & 1;
-      if (s + 1 < nslab) fetch(s + 1);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        Vec4<T> a[NVM], b[NVN];
-#pragma unroll
-        for (int g = 0; g < NVM; ++g)
-          if (rg[g])
-            a[g] = *reinterpret_cast<const Vec4<T>*>(
-                &as[buf][kk][g * (BM / NVM) + ty * 4]);
-#pragma unroll
-        for (int h = 0; h < NVN; ++h)
-          if (cg[h])
-            b[h] = *reinterpret_cast<const Vec4<T>*>(
-                &bs[buf][kk][h * (BN / NVN) + tx * 4]);
-#pragma unroll
-        for (int g = 0; g < NVM; ++g)
-#pragma unroll
-          for (int h = 0; h < NVN; ++h)
-            if (rg[g] && cg[h]) {
-#pragma unroll
-              for (int u = 0; u < 4; ++u)
-#pragma unroll
-                for (int v = 0; v < 4; ++v)
-                  acc[g * 4 + u][h * 4 + v] += a[g].v[u] * b[h].v[v];
-            }
-      }
-      if (s + 1 < nslab) stash(buf ^ 1);
-      __syncthreads();
-    }
-  }
-
-  if (t1 > t0) {
-    T* d = pool + (size_t)dst[t0] * nb * nb;
-#pragma unroll
-    for (int u = 0; u < TM; ++u) {
-      const int i = i0 + (u / 4) * (BM / NVM) + ty * 4 + (u % 4);
-      if (i >= nb) continue;
-#pragma unroll
-      for (int v = 0; v < TN; ++v) {
-        const int j = j0 + (v / 4) * (BN / NVN) + tx * 4 + (v % 4);
-        if (j < nb) d[(size_t)i * nb + j] -= acc[u][v];
-      }
-    }
-  }
+  if (t1 <= t0) return;
+  update_segment<T, TM, TN>(pool, lor, loc, blkn, srcn, relr, relc, 0,
+                            (long long)dst[t0] * nb, nb, t0, t1,
+                            (blockIdx.y / ntn) * BM, (blockIdx.y % ntn) * BN,
+                            sm, threadIdx.x);
 }
 
 template <typename T, int TM, int TN>
@@ -221,7 +72,7 @@ int launch_cfg(void* pool, const int* seg_ptr, const int* dst, const int* lor,
   constexpr int BM = 16 * TM, BN = 16 * TN;
   const int ntm = (nb + BM - 1) / BM, ntn = (nb + BN - 1) / BN;
   dim3 grid(nseg, ntm * ntn);
-  update_kernel<T, TM, TN><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  update_kernel<T, TM, TN><<<grid, kUpdNT, 0, (cudaStream_t)stream>>>(
       (T*)pool, seg_ptr, dst, lor, loc, blkn, srcn, relr, relc, nb);
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,13 @@
 
 The sources in ``spllt_tpu_torch/csrc/*.cu`` have a plain C interface
 (``extern "C"``: pointers, ints and the stream; each entry point returns
-``cudaGetLastError()``).  At first use every source is compiled with
+``cudaGetLastError()``); the ``*.cuh`` headers beside them hold the device
+functions that the batched and the stream kernels share.  At first use every source is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``spllt_tpu_torch/_build/`` — one compiler process per source, all started
 together — and loaded with ``ctypes``.  Library names carry a hash of the
-source and the flags, so an edited source is rebuilt and a built one is
-reused.  Nothing is built when the package is imported: a machine without
+source, the headers and the flags, so an edited source or header is rebuilt
+and a built one is reused.  Nothing is built when the package is imported: a machine without
 ``nvcc`` imports every module and runs the plain versions on CPU tensors.
 """
 
@@ -32,10 +33,12 @@ KERNEL_SOURCES = {
     "trsm": "trsm.cu",
     "update": "update.cu",
     "solve": "solve.cu",
+    "mega_factor": "mega_factor.cu",
+    "mega_solve": "mega_solve.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
+          "-shared", "-Xcompiler", "-fPIC", "-I", _CSRC]
 
 _libs: dict = {}
 
@@ -59,8 +62,15 @@ def _source_path(name: str) -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(_source_path(name), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    """The library of source ``name``, keyed by a hash of the source, of
+    every header in ``csrc/`` it could include, and of the flags (the
+    include path is hashed by its role, not by where the package lies)."""
+    h = hashlib.sha256(" ".join(_FLAGS[:-1]).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [_source_path(name)] + [os.path.join(_CSRC, f)
+                                        for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(_OUT, f"libspllt_{name}_{h.hexdigest()[:16]}.so")
 
 

@@ -1,0 +1,325 @@
+"""The whole numeric factorization as one stream kernel.
+
+``build_mega_stream`` flattens a FactorPlan into one task stream in
+dependency order: per level a run of UPD tasks (the between-node update
+micro-tasks merged with the within-node syrk/gemm products as identity-map
+tasks, sorted by destination), then the level's POTRF run, then its TRSM
+run.  ``mega_factorize`` executes the stream in place on the flat pool
+[rows, nb]; ``MegaFactorExecutor`` wraps it behind the interface of
+:class:`.factor_scan.ScanFactorExecutor`.
+
+The stream is one set of flat int32 tables for the whole factorization:
+
+  run_ptr [R+1], run_kind [R]   task range and kind of each run
+  wr, wc, dst, aux, srcn [K]    per task: two window row bases, the
+                                destination row base, aux (UPD: valid
+                                columns ``blkn`` of the destination tile;
+                                POTRF/TRSM: factor columns ``kv``) and, for
+                                UPD, the valid width of the source block
+                                column (the contraction stops there)
+  relr, relc [K_upd, nb]        window-relative row maps of the UPD tasks
+  run_rel [R]                   UPD run r: task t has rel row t − run_rel[r]
+  seg_ptr, run_seg [R+1]        UPD run r: seg_ptr[run_seg[r]:run_seg[r+1]]
+                                are the task offsets of its runs of equal
+                                dst (one more entry than segments)
+
+What crosses over from ``spllt_tpu.numeric.megakernel.build_mega_stream``
+is the task order and the run boundaries (its ``drain`` steps).  Its step
+machinery — runs padded to a group size with scratch tasks, keep/sact/seg
+bits for the grouped scan, chunks sized by a scalar-table budget and padded
+to one shape — serves a sequential grid and has no counterpart here.
+
+Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/megakernel.py``
+(``mega_factorize`` / ``_kernel``); the source is ``csrc/mega_factor.cu``.
+Its bound is the sum of its bodies' bounds (bytes for the sparse update
+tasks and the leaf potrf tiles; dependent chains of potrf and trsm near the
+root) plus one grid barrier per run.  One persistent cooperative launch
+loops over the runs; inside a run whichever block is free takes the next
+work item from a counter (UPD: one destination segment, summed in registers, one
+read-modify-write; POTRF: one tile in place; TRSM: some rows of one pair in
+place) and a grid barrier at every run boundary orders the runs.  The
+elimination bodies are the ones of the batched kernels (``csrc/*_body.cuh``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import check_launch, load, require_cuda_tensors
+from .factor_scan import canonical_device
+from .hopper_potrf import potrf_plain
+from .hopper_trsm import trsm_plain
+from .hopper_update import apply_updates_plain, build_micro_tasks
+
+__all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "build_mega_stream",
+           "stream_to_device", "mega_factorize", "mega_factorize_plain",
+           "MegaFactorExecutor"]
+
+KIND_UPD, KIND_POTRF, KIND_TRSM = 0, 1, 2
+
+_TASK_KEYS = ("wr", "wc", "dst", "aux", "srcn")
+_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "seg_ptr",
+             "wr", "wc", "dst", "aux", "srcn", "relr", "relc")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {f"spllt_mega_factor_{s}":
+        [_P] * 14 + [_I, _I, _I, ctypes.POINTER(ctypes.c_int), _P]
+        for s in ("f32", "f64")}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def segment_offsets(dst: np.ndarray, base: int = 0) -> np.ndarray:
+    """Offsets (plus ``base``) of the runs of equal value in the sorted
+    ``dst``, with the end appended: nseg + 1 entries."""
+    k = len(dst)
+    starts = np.flatnonzero(np.diff(dst, prepend=-1)) if k else \
+        np.empty(0, np.int64)
+    return (np.concatenate([starts, [k]]) + base).astype(np.int64)
+
+
+def build_mega_stream(fp, pool_rows: int) -> dict:
+    """Flatten the FactorPlan into the factor stream (NumPy int32 tables,
+    see the module docstring).  Raises ``ValueError`` when a table breaks
+    what the kernel relies on."""
+    nb = fp.nb
+    iden = np.arange(nb, dtype=np.int32)
+    runs = []        # (kind, {wr, wc, dst, aux, srcn}, relr, relc)
+
+    for lvl in range(1, fp.nlevels + 1):
+        # ---- UPD: between-update micro-tasks + intra-node syrk ------- #
+        mt = build_micro_tasks(fp, lvl, lvl, nb, pool_rows)
+        s0, s1 = int(fp.syrk_ptr[lvl]), int(fp.syrk_ptr[lvl + 1])
+        k_syrk = s1 - s0
+        if len(mt["dst"]) + k_syrk:
+            sdst = np.asarray(fp.syrk_dst[s0:s1], np.int64)
+            ssrc_j = np.asarray(fp.syrk_src_j[s0:s1], np.int64)
+            cols = {
+                "dst": np.concatenate([mt["dst"].astype(np.int64) * nb,
+                                       sdst * nb]),
+                "wr": np.concatenate([
+                    mt["lor"].astype(np.int64),
+                    np.asarray(fp.syrk_src_i[s0:s1], np.int64) * nb]),
+                "wc": np.concatenate([mt["loc"].astype(np.int64),
+                                      ssrc_j * nb]),
+                "aux": np.concatenate([mt["blkn"].astype(np.int64),
+                                       fp.blk_n[sdst].astype(np.int64)]),
+                "srcn": np.concatenate([mt["srcn"].astype(np.int64),
+                                        fp.blk_n[ssrc_j].astype(np.int64)]),
+            }
+            relr = np.concatenate([mt["relr"], np.tile(iden, (k_syrk, 1))])
+            relc = np.concatenate([mt["relc"], np.tile(iden, (k_syrk, 1))])
+            order = np.argsort(cols["dst"], kind="stable")
+            runs.append((KIND_UPD, {k: v[order] for k, v in cols.items()},
+                         relr[order], relc[order]))
+        # ---- POTRF (the plan sorts by descending kv) ----------------- #
+        p0, p1 = int(fp.potrf_ptr[lvl]), int(fp.potrf_ptr[lvl + 1])
+        if p1 > p0:
+            blk = np.asarray(fp.potrf_blk[p0:p1], np.int64) * nb
+            runs.append((KIND_POTRF, {
+                "wr": blk, "wc": blk, "dst": blk,
+                "aux": np.asarray(fp.potrf_k[p0:p1], np.int64),
+                "srcn": np.zeros(p1 - p0, np.int64)}, None, None))
+        # ---- TRSM ---------------------------------------------------- #
+        t0, t1 = int(fp.trsm_ptr[lvl]), int(fp.trsm_ptr[lvl + 1])
+        if t1 > t0:
+            dstt = np.asarray(fp.trsm_dst[t0:t1], np.int64) * nb
+            runs.append((KIND_TRSM, {
+                "wr": np.asarray(fp.trsm_diag[t0:t1], np.int64) * nb,
+                "wc": dstt, "dst": dstt,
+                "aux": np.asarray(fp.trsm_k[t0:t1], np.int64),
+                "srcn": np.zeros(t1 - t0, np.int64)}, None, None))
+    return assemble_stream(runs, nb, pool_rows)
+
+
+def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
+    """Concatenate runs ``(kind, {wr, wc, dst, aux, srcn}, relr, relc)``
+    into the flat tables, checking what the kernel relies on: windows inside
+    the pool, ``dst`` tile-aligned everywhere and sorted inside a UPD run,
+    map entries in [-1, nb), ``aux`` and ``srcn`` in [0, nb]."""
+    run_ptr, run_kind, run_seg, run_rel = [0], [], [0], []
+    seg_ptr, relr_all, relc_all = [], [], []
+    cols = {k: [] for k in _TASK_KEYS}
+    ntask = nrel = nsegent = 0
+    for kind, tab, relr, relc in runs:
+        k = len(tab["dst"])
+        for nm in _TASK_KEYS:
+            a = np.asarray(tab[nm], np.int64)
+            if a.shape != (k,):
+                raise ValueError(f"factor stream: {nm} must be [{k}]")
+            hi = pool_rows - nb if nm in ("wr", "wc", "dst") else nb
+            if k and (a.min() < 0 or a.max() > hi):
+                raise ValueError(f"factor stream: {nm} outside [0, {hi}]")
+            cols[nm].append(a)
+        if (np.asarray(tab["dst"]) % nb).any():
+            raise ValueError("factor stream: dst is not tile-aligned")
+        run_rel.append(ntask - nrel)
+        if kind == KIND_UPD:
+            if (np.diff(tab["dst"]) < 0).any():
+                raise ValueError("factor stream: dst must be sorted inside "
+                                 "a UPD run")
+            for nm, a in (("relr", relr), ("relc", relc)):
+                a = np.asarray(a)
+                if a.shape != (k, nb):
+                    raise ValueError(f"factor stream: {nm} must be [K, nb]")
+                if k and (a.min() < -1 or a.max() >= nb):
+                    raise ValueError(f"factor stream: {nm} outside [-1, nb)")
+            relr_all.append(np.asarray(relr, np.int32))
+            relc_all.append(np.asarray(relc, np.int32))
+            seg = segment_offsets(np.asarray(tab["dst"]), ntask)
+            seg_ptr.append(seg)
+            nsegent += len(seg)
+            nrel += k
+        elif kind not in (KIND_POTRF, KIND_TRSM):
+            raise ValueError(f"factor stream: unknown kind {kind}")
+        ntask += k
+        run_ptr.append(ntask)
+        run_kind.append(kind)
+        run_seg.append(nsegent)
+
+    def cat(parts, shape=(0,)):
+        return (np.concatenate(parts) if parts
+                else np.empty(shape, np.int64)).astype(np.int32)
+
+    out = {nm: cat(cols[nm]) for nm in _TASK_KEYS}
+    out.update(run_ptr=np.asarray(run_ptr, np.int32),
+               run_kind=np.asarray(run_kind, np.int32),
+               run_seg=np.asarray(run_seg, np.int32),
+               run_rel=np.asarray(run_rel, np.int32),
+               seg_ptr=cat(seg_ptr), relr=cat(relr_all, (0, nb)),
+               relc=cat(relc_all, (0, nb)), nb=nb, pool_rows=pool_rows)
+    return out
+
+
+def tables_to_device(stream: dict, dev_keys, meta_keys, device) -> dict:
+    """The tables ``dev_keys`` of a stream as int32 tensors on ``device``;
+    the per-run tables stay available on the host (under ``host``) for the
+    plain version's loop over the runs, and ``meta_keys`` are copied."""
+    out = {k: torch.as_tensor(np.ascontiguousarray(stream[k], np.int32),
+                              device=device) for k in dev_keys}
+    out["host"] = {k: np.asarray(stream[k]) for k in
+                   ("run_ptr", "run_kind", "run_seg", "run_rel")}
+    for k in meta_keys:
+        out[k] = stream[k]
+    return out
+
+
+def stream_to_device(stream: dict, device) -> dict:
+    """The factor stream's tables on ``device`` (see
+    :func:`tables_to_device`)."""
+    return tables_to_device(stream, _DEV_KEYS, ("nb", "pool_rows"), device)
+
+
+def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
+    """Plain PyTorch version (any device), in place on ``poolf`` [rows, nb]:
+    a loop over the runs calling the plain update, potrf and trsm on the
+    tiles the tables name."""
+    nb = stream["nb"]
+    pool = poolf.view(-1, nb, nb)
+    h = stream["host"]
+    for r, kind in enumerate(h["run_kind"]):
+        t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
+        sl = slice(t0, t1)
+        if kind == KIND_UPD:
+            rel = slice(t0 - int(h["run_rel"][r]), t1 - int(h["run_rel"][r]))
+            apply_updates_plain(poolf, {
+                "dst": stream["dst"][sl] // nb, "lor": stream["wr"][sl],
+                "loc": stream["wc"][sl], "blkn": stream["aux"][sl],
+                "srcn": stream["srcn"][sl], "relr": stream["relr"][rel],
+                "relc": stream["relc"][rel]})
+        elif kind == KIND_POTRF:
+            blk = (stream["dst"][sl] // nb).to(torch.int64)
+            pool[blk] = potrf_plain(pool[blk], stream["aux"][sl])
+        else:
+            diag = (stream["wr"][sl] // nb).to(torch.int64)
+            dst = (stream["dst"][sl] // nb).to(torch.int64)
+            pool[dst] = trsm_plain(pool[diag], pool[dst], stream["aux"][sl])
+    return poolf
+
+
+def mega_factorize(poolf: torch.Tensor, stream: dict,
+                   max_blocks: int = 0) -> torch.Tensor:
+    """``poolf`` [rows, nb] float32/float64, factored in place and returned;
+    ``stream`` as :func:`stream_to_device` returns it, on the same device.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``max_blocks`` > 0 caps the kernel's grid (tests of the item loops);
+    the number of blocks launched is left in ``mega_factorize.last_grid``."""
+    if poolf.device.type == "cpu":
+        return mega_factorize_plain(poolf, stream)
+    tens = [stream[k] for k in _DEV_KEYS]
+    require_cuda_tensors("mega_factorize", poolf, *tens)
+    nb = stream["nb"]
+    if poolf.ndim != 2 or poolf.shape != (stream["pool_rows"], nb):
+        raise ValueError(f"mega_factorize: pool must be "
+                         f"[{stream['pool_rows']}, {nb}], got "
+                         f"{tuple(poolf.shape)}")
+    if poolf.dtype not in _SUFFIX or any(t.dtype != torch.int32
+                                         for t in tens):
+        raise ValueError("mega_factorize: pool must be float32/float64 and "
+                         "the stream tables int32")
+    nruns = stream["run_kind"].shape[0]
+    if nruns == 0:
+        return poolf
+    fn = getattr(load("mega_factor", _SIG),
+                 "spllt_mega_factor_" + _SUFFIX[poolf.dtype])
+    grid = ctypes.c_int(0)
+    # one work-item counter per run, zero at launch
+    counters = torch.zeros(nruns, dtype=torch.int32, device=poolf.device)
+    with torch.cuda.device(poolf.device):
+        status = fn(poolf.data_ptr(), *(t.data_ptr() for t in tens),
+                    counters.data_ptr(), nruns, nb, int(max_blocks),
+                    ctypes.byref(grid),
+                    torch.cuda.current_stream().cuda_stream)
+    check_launch(status, "mega_factorize")
+    mega_factorize.launches += 1
+    mega_factorize.last_grid = grid.value
+    return poolf
+
+
+mega_factorize.launches = 0
+mega_factorize.last_grid = 0
+
+
+class MegaFactorExecutor:
+    """Holds the factor stream of one FactorPlan on ``device``; call-compatible
+    with :class:`.factor_scan.ScanFactorExecutor`.
+
+    The tables do not depend on the matrix values, so one executor serves
+    every refactorization of the same pattern.  float32 and float64 pools
+    are both taken (one kernel template), at any nb."""
+
+    def __init__(self, fp, dtype: torch.dtype = torch.float32,
+                 matmul_precision: str = "highest", device="cuda"):
+        if dtype not in _SUFFIX:
+            raise ValueError(f"the factor stream kernel takes float32 or "
+                             f"float64 pools, not {dtype}")
+        self.fp = fp
+        self.nb = fp.nb
+        self.dtype = dtype
+        self.precision = matmul_precision
+        self.device = canonical_device(device)
+        self.pool_rows = (fp.nblocks + 1) * fp.nb
+        stream = build_mega_stream(fp, self.pool_rows)
+        self.num_runs = len(stream["run_kind"])
+        self.num_tasks = len(stream["dst"])
+        self.stream = stream_to_device(stream, self.device)
+
+    def __call__(self, pool: torch.Tensor):
+        """pool: [nblocks+1, nb, nb] on the executor's device, with the
+        trailing zero block.  Factored IN PLACE.  Returns (pool,
+        not_posdef_flag); the flag is a 0-d bool tensor (a failed potrf
+        tile is NaN everywhere and NaNs spread from there), read it with
+        ``bool()``."""
+        fp = self.fp
+        if pool.shape != (fp.nblocks + 1, self.nb, self.nb):
+            raise ValueError("pool must be [nblocks+1, nb, nb] (with the "
+                             "trailing zero block)")
+        if pool.dtype != self.dtype or pool.device != self.device \
+                or not pool.is_contiguous():
+            raise ValueError(
+                f"pool must be contiguous {self.dtype} on {self.device}, "
+                f"got {pool.dtype} on {pool.device}")
+        mega_factorize(pool.view(-1, self.nb), self.stream)
+        notpos = torch.isnan(pool[:, 0, 0].sum())
+        return pool, notpos

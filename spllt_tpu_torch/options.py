@@ -37,8 +37,8 @@ class Options:
     mode: str = "batched"    # 'batched' (level schedule on ``device``) |
     #   'stf' (float64 NumPy oracle on the host)
     schedule: str = "scan"   # 'scan' | 'unrolled': the level executors (one
-    #   Python loop over the plan's levels); 'mega' (one stream kernel) is
-    #   not ported yet and raises NotImplementedError in factor
+    #   Python loop over the plan's levels); 'mega': the stream executors
+    #   (the whole factorization, and each solve sweep, as one kernel)
     precision: str = "highest"  # accepted: 'highest' | 'high' | 'default';
     #   all three compute in IEEE arithmetic of the pool dtype for now
     dtype: str = "float32"   # pool dtype: 'float32' | 'float64'

@@ -57,6 +57,12 @@ def test_import_and_cpu_run_without_jax():
         "s = st.analyse(a, st.Options(nb=8, device='cpu'))\n"
         "x = st.solve(st.factor(s), np.ones(a.n))\n"
         "assert np.abs(a.matvec(x) - 1).max() < 1e-12\n"
+        "m = st.factor(s, options=st.Options(nb=8, device='cpu', "
+        "schedule='mega'))\n"
+        "assert np.abs(a.matvec(st.solve(m, np.ones(a.n))) - 1).max() "
+        "< 1e-12\n"
+        "assert 'spllt_tpu_torch.numeric.solve_mega' in sys.modules\n"
+        "assert 'spllt_tpu_torch.numeric.megakernel' in sys.modules\n"
         "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
         "m.startswith('jax.') or m == 'spllt_tpu' or "
         "m.startswith('spllt_tpu.')]\n"
@@ -176,13 +182,19 @@ def test_default_device_never_falls_back_to_cpu():
     assert isinstance(num.pool, np.ndarray)
 
 
-@pytest.mark.parametrize("kw", [dict(schedule="mega"), dict(ndevices=2),
+@pytest.mark.parametrize("kw", [dict(schedule="mega", ndevices=2),
+                                dict(ndevices=2),
                                 dict(coarse_subtrees=True)],
                          ids=["mega", "ndevices", "coarse_subtrees"])
 def test_not_ported_options_raise(kw):
+    """schedule='mega' itself is ported; across devices it is not, like
+    the level path."""
     symb = st.analyse(st.poisson2d(6), st.Options(nb=8, device="cpu"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         st.factor(symb, options=st.Options(nb=8, device="cpu", **kw))
+    num = st.factor(symb, options=st.Options(nb=8, device="cpu",
+                                             schedule="mega"))
+    assert isinstance(num.pool, torch.Tensor)
 
 
 def test_unrolled_maps_to_level_executor():
