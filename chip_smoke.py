@@ -24,7 +24,10 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
      run with 1, 3 and all blocks; and times them there (CUDA events, after
      a warm-up);
-  5. optionally repeats both main paths at poisson3d(64).
+  5. repeats both main paths at poisson3d(64) (unless ``--no-large``),
+     holding the update kernel against its plain version at every level
+     and the factor stream kernel against its plain version and the level
+     executor's factor there too.
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -105,25 +108,44 @@ PATH_EXECUTORS = {"scan": ("ScanFactorExecutor", "ScanSolveExecutor"),
                   "mega": ("MegaFactorExecutor", "MegaSolveExecutor")}
 
 
+def live_blocks(mask: torch.Tensor, g: int) -> torch.Tensor:
+    """Per row of ``mask`` [K, n]: g times the number of aligned blocks of
+    g entries that hold a True one."""
+    k, n = mask.shape
+    m = torch.zeros((k, -(-n // g) * g), dtype=torch.int8, device=mask.device)
+    m[:, :n] = mask.to(torch.int8)
+    return m.view(k, -1, g).amax(2).sum(1).to(torch.int64) * g
+
+
 def update_level_work(tasks: dict, nb: int) -> dict:
     """What one level's update micro-tasks need, from the executor's own
     tables: elements gathered (unmasked rows and columns, trimmed to the
     source's width), operations of the unmasked rows and columns with the
-    full and with the trimmed contraction, and of a dense nb x nb x nb
-    product per task with and without the trim."""
+    full and with the trimmed contraction, of what the update body executes
+    (the aligned blocks of ``EXEC_ROWS`` rows and ``EXEC_COLS`` columns
+    that hold a live one, the contraction in slabs of ``EXEC_SLAB``, as
+    ``hopper_update`` states them), and of a dense nb x nb x nb product per
+    task with and without the trim."""
+    from spllt_tpu_torch.numeric.hopper_update import (EXEC_COLS, EXEC_ROWS,
+                                                       EXEC_SLAB)
+
     ar = torch.arange(nb, device=tasks["relr"].device)
-    vr = (tasks["relr"] >= 0).sum(1).to(torch.int64)
-    vc = ((tasks["relc"] >= 0)
-          & (ar[None, :] < tasks["blkn"][:, None])).sum(1).to(torch.int64)
-    kn = tasks["srcn"].to(torch.int64)
+    mr = tasks["relr"] >= 0
+    mc = (tasks["relc"] >= 0) & (ar[None, :] < tasks["blkn"][:, None])
+    vr, vc = mr.sum(1).to(torch.int64), mc.sum(1).to(torch.int64)
+    kn = tasks["srcn"].to(torch.int64).clamp(max=nb)
+    up = lambda x, g: (x + g - 1) // g * g
     return {"tasks": int(kn.numel()),
             "segments": int(tasks["seg_ptr"].numel()) - 1,
             "gathered": int(((vr + vc) * kn).sum()),
             "unmasked_full_k": int((2 * vr * vc * nb).sum()),
             "unmasked_trimmed_k": int((2 * vr * vc * kn).sum()),
+            "executed": int((2 * live_blocks(mr, EXEC_ROWS)
+                             * live_blocks(mc, EXEC_COLS)
+                             * up(kn, EXEC_SLAB)).sum()),
             "dense_full_k": int(kn.numel()) * 2 * nb ** 3,
             "dense_trimmed_k_slabs":
-                int((2 * nb * nb * ((kn + 7) // 8 * 8)).sum())}
+                int((2 * nb * nb * up(kn, EXEC_SLAB)).sum())}
 
 
 def upd_run_tasks(stream: dict, r: int) -> dict:
@@ -144,8 +166,8 @@ def update_work(fex, nb: int) -> dict:
     sums of :func:`update_level_work` over the levels of a level executor or
     over the UPD runs of a stream executor (which include the within-node
     syrk products)."""
-    keys = ("unmasked_full_k", "unmasked_trimmed_k", "dense_full_k",
-            "dense_trimmed_k_slabs")
+    keys = ("unmasked_full_k", "unmasked_trimmed_k", "executed",
+            "dense_full_k", "dense_trimmed_k_slabs")
     if hasattr(fex, "levels"):
         tabs = [lv["upd"] for lv in fex.levels if "upd" in lv]
     else:
@@ -154,6 +176,45 @@ def update_work(fex, nb: int) -> dict:
                 if kinds[r] == 0]
     levels = [update_level_work(t, nb) for t in tabs]
     return {k: sum(w[k] for w in levels) / 1e9 for k in keys}
+
+
+def update_rates(gflop: dict, ms: float) -> dict:
+    """Useful, executed and dense-equivalent GFLOP of one factorization's
+    update tasks (as :func:`update_work` counts them) and the rates that
+    ``ms`` of update time gives."""
+    return dict(ms=ms, useful_gflop=gflop["unmasked_trimmed_k"],
+                executed_gflop=gflop["executed"],
+                dense_equivalent_gflop=gflop["dense_trimmed_k_slabs"],
+                useful_tflops=gflop["unmasked_trimmed_k"] / ms,
+                executed_tflops=gflop["executed"] / ms)
+
+
+def update_levels_check(num, fex) -> dict:
+    """The update kernel at every level of one factorization of the level
+    executor ``fex``: held against its plain version on the factor pool of
+    ``num`` (float32: 1e-5 of the size of the update), then timed on a copy
+    of it (the values do not change the work).  Returns the summed
+    milliseconds and the largest error."""
+    from spllt_tpu_torch.numeric.hopper_update import (apply_updates,
+                                                       apply_updates_plain)
+
+    base = num.pool.view(-1, fex.nb)
+    work = base.clone()
+    total, worst, levels = 0.0, 0.0, 0
+    for lv in fex.levels:
+        if "upd" not in lv:
+            continue
+        got = apply_updates(base.clone(), lv["upd"])
+        ref = apply_updates_plain(base.clone(), lv["upd"])
+        torch.cuda.synchronize()
+        rel = rel_err(got, ref, base)[1]
+        require(rel <= 1e-5, f"update at level {levels}: rel err {rel}")
+        worst = max(worst, rel)
+        del got, ref
+        total += time_ms(lambda: apply_updates(work, lv["upd"]), 3)
+        levels += 1
+    del work
+    return dict(ms=total, levels_checked=levels, max_rel_err=worst)
 
 
 def main_path(m: int, card: str, full_checks: bool, schedule: str):
@@ -614,6 +675,48 @@ def kernel_phase(num, fex, sex, nrhs, launches):
     return out, edge_out
 
 
+def update_synthetic() -> dict:
+    """The update kernel on synthetic segments: 1024 destination tiles of 8
+    micro-tasks each at nb=128, float32, windows at random in a pool of 4096
+    tiles; every row and column live and srcn=128 ('dense'); 32 live rows
+    and columns, srcn=128; 6 live rows and columns, srcn=5.  Each is held
+    against the plain version, then timed (CUDA events); the rate is the
+    useful work over the time."""
+    from spllt_tpu_torch.numeric import hopper_update as hu
+
+    rng = np.random.default_rng(SEED + 4)
+    nb, nseg, per = 128, 1024, 8
+    k, rows = nseg * per, 4096 * nb
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    pool = torch.randn((rows, nb), generator=gen, device="cuda")
+    out = {}
+    for name, live, kn in (("dense", 128, 128), ("live32", 32, 128),
+                           ("live6_srcn5", 6, 5)):
+        maps = []
+        for _ in range(2):
+            rel = np.full((k, nb), -1, np.int32)
+            pos = np.argsort(rng.random((k, nb)), axis=1)[:, :live]
+            np.put_along_axis(rel, pos, rng.integers(0, nb, (k, live)), 1)
+            maps.append(rel)
+        tasks = hu.tasks_to_device({
+            "dst": np.repeat(np.arange(nseg), per),
+            "lor": rng.integers(nseg * nb, rows - nb, k),
+            "loc": rng.integers(nseg * nb, rows - nb, k),
+            "blkn": np.full(k, nb), "srcn": np.full(k, kn),
+            "relr": maps[0], "relc": maps[1]}, nb, rows, "cuda")
+        got = hu.apply_updates(pool.clone(), tasks)
+        ref = hu.apply_updates_plain(pool.clone(), tasks)
+        torch.cuda.synchronize()
+        mabs, rel = rel_err(got, ref, pool)
+        require(rel <= 1e-5, f"update on synthetic {name} tasks: rel {rel}")
+        del got, ref
+        ms = time_ms(lambda: hu.apply_updates(pool, tasks), 3)
+        useful = 2 * live * live * kn * k / 1e9
+        out[name] = dict(ms=ms, useful_gflop=useful, useful_tflops=useful / ms,
+                         rel_err=rel)
+    return out
+
+
 # --------------------------------------------------------------------- #
 # the stream kernels against their plain versions
 # --------------------------------------------------------------------- #
@@ -731,6 +834,38 @@ def factor_run_times(fex, pool0: torch.Tensor, work) -> dict:
                 ms_in_those_runs=narrow_ms)
 
 
+def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
+    """The factor stream kernel on the assembled pool of ``num``: against
+    its plain version and against the level executor's factor ``scan_pool``
+    (each within ``tol`` of max|ref|: other summation order, sqrt/division),
+    and bit for bit against the factor the main path computed.  Returns
+    (assembled pool, the kernel's factor, errors)."""
+    from spllt_tpu_torch.numeric import megakernel
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+
+    nb = fex.nb
+    pool0 = assemble_torch(num.plan, num.values_perm, torch.float32,
+                           num.pool.device)
+    got = pool0.clone()
+    megakernel.mega_factorize(got.view(-1, nb), fex.stream)
+    ref = pool0.clone()
+    megakernel.mega_factorize_plain(ref.view(-1, nb), fex.stream)
+    torch.cuda.synchronize()
+    mabs, rel = rel_err(got, ref)
+    require(rel <= tol, f"mega_factor: kernel differs from the plain "
+                        f"version: rel {rel} > {tol}")
+    del ref
+    vs_scan = rel_err(got, scan_pool)
+    require(vs_scan[1] <= tol, f"mega_factor: differs from the level "
+                               f"executor's factor: rel {vs_scan[1]}")
+    require(rel_err(got, num.pool)[0] == 0.0,
+            "mega_factor is not deterministic: the same stream on the same "
+            "pool gave another factor")
+    return pool0, got, dict(max_abs=mabs, rel=rel,
+                            vs_level_executor_rel=vs_scan[1],
+                            vs_level_executor_max_abs=vs_scan[0])
+
+
 def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
                       run_times: bool):
     """K4 and K6 at the shapes the stream main path gave them: the factor
@@ -739,7 +874,6 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     solve direction against its plain version at nrhs 1, ``nrhs`` and 64.
     Returns (kernel rows, details)."""
     from spllt_tpu_torch.numeric import megakernel, solve_mega
-    from spllt_tpu_torch.numeric.assemble import assemble_torch
 
     nb, esz = fex.nb, 4
     TOL32 = 1e-5        # of max|ref|: other summation order, sqrt/division
@@ -747,25 +881,9 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     rows, detail = [], {}
 
     # ---- K4 ---- #
-    pool0 = assemble_torch(num.plan, num.values_perm, torch.float32,
-                           num.pool.device)
-    got = pool0.clone()
-    megakernel.mega_factorize(got.view(-1, nb), fex.stream)
-    ref = pool0.clone()
-    megakernel.mega_factorize_plain(ref.view(-1, nb), fex.stream)
-    torch.cuda.synchronize()
+    pool0, buf, checks = mega_factor_check(num, fex, scan_pool)
     acc = Acc()
-    acc.mabs, acc.rel = rel_err(got, ref)
-    require(acc.rel <= TOL32, f"mega_factor: kernel differs from the plain "
-                              f"version: rel {acc.rel} > {TOL32}")
-    vs_scan = rel_err(got, scan_pool)
-    require(vs_scan[1] <= TOL32, f"mega_factor: differs from the level "
-                                 f"executor's factor: rel {vs_scan[1]}")
-    vs_api = rel_err(got, num.pool)
-    require(vs_api[0] == 0.0, "mega_factor is not deterministic: the same "
-                              "stream on the same pool gave another factor")
-    del ref
-    buf = got
+    acc.mabs, acc.rel = checks["max_abs"], checks["rel"]
     acc.n = 1
     acc.ms = time_prepared_ms(
         lambda: buf.copy_(pool0),
@@ -783,12 +901,13 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
         f"[{fex.pool_rows},{nb}], {megakernel.mega_factorize.last_grid} "
         f"blocks", launches, TOL32))
     detail["mega_factor"] = dict(
-        vs_level_executor_rel=vs_scan[1], vs_level_executor_max_abs=vs_scan[0],
+        vs_level_executor_rel=checks["vs_level_executor_rel"],
+        vs_level_executor_max_abs=checks["vs_level_executor_max_abs"],
         update_tasks=int(fex.stream["relr"].shape[0]))
     if run_times:
         detail["mega_factor"]["run_times"] = factor_run_times(fex, pool0,
                                                               work)
-    del buf, got, pool0
+    del buf, pool0
 
     # ---- K6 ---- #
     poolf = num.pool.view(-1, nb)
@@ -848,6 +967,7 @@ def edge_stream_phase():
     for bit (no result depends on which block took an item)."""
     import spllt_tpu_torch as st
     from spllt_tpu_torch.api import _plans
+    from spllt_tpu_torch.numeric import hopper_update as hu
     from spllt_tpu_torch.numeric import megakernel as mk
     from spllt_tpu_torch.numeric import solve_mega as sm
     from spllt_tpu_torch.numeric.assemble import assemble_torch
@@ -858,14 +978,15 @@ def edge_stream_phase():
     tols = {torch.float32: 1e-5, torch.float64: 1e-11}
     out = {}
 
-    def check(tag, run_kernel, run_plain, dtype):
-        """run_kernel(max_blocks) / run_plain() each return a new tensor."""
+    def check(tag, run_kernel, run_plain, dtype, base=None):
+        """run_kernel(max_blocks) / run_plain() each return a new tensor;
+        ``base`` as for :func:`rel_err`."""
         ref = run_plain()
         full = run_kernel(0)
         for mb in (1, 3, 0):
             got = run_kernel(mb)
             torch.cuda.synchronize()
-            mabs, rel = rel_err(got, ref)
+            mabs, rel = rel_err(got, ref, base)
             require(rel <= tols[dtype], f"edge stream {tag}, max_blocks="
                                         f"{mb}: rel err {rel}")
             same = torch.equal(torch.nan_to_num(got), torch.nan_to_num(full))
@@ -985,6 +1106,35 @@ def edge_stream_phase():
                                            max_blocks=mb),
                   lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
                   dtype)
+
+    # ---- update tasks that stress the masks and skip rules: K4 and K3 ---- #
+    for nb in (48, 128, 256):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"upd_nb{nb}_{str(dtype)[-7:]}"
+            rows_ = 12 * nb
+            tasks = hu.edge_case_tasks(nb, rows_, SEED + nb)
+            pool0 = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                                    dtype=dtype, device="cuda")
+            stream = mk.stream_to_device(mk.assemble_stream([
+                (mk.KIND_UPD, {"wr": tasks["lor"], "wc": tasks["loc"],
+                               "dst": tasks["dst"].astype(np.int64) * nb,
+                               "aux": tasks["blkn"], "srcn": tasks["srcn"]},
+                 tasks["relr"], tasks["relc"])], nb, rows_), "cuda")
+            check(f"factor_{tag}",
+                  lambda mb: mk.mega_factorize(pool0.clone(), stream,
+                                               max_blocks=mb),
+                  lambda: mk.mega_factorize_plain(pool0.clone(), stream),
+                  dtype, pool0)
+            tdev = hu.tasks_to_device(tasks, nb, rows_, "cuda")
+            ref = hu.apply_updates_plain(pool0.clone(), tdev)
+            got = hu.apply_updates(pool0.clone(), tdev)
+            again = hu.apply_updates(pool0.clone(), tdev)
+            torch.cuda.synchronize()
+            mabs, rel = rel_err(got, ref, pool0)
+            require(rel <= tols[dtype], f"update {tag}: rel err {rel}")
+            require(torch.equal(got, again), f"update {tag}: two launches "
+                                             f"gave different results")
+            out[f"update_{tag}"] = {"max_abs": mabs, "rel": rel}
     return out
 
 
@@ -1065,6 +1215,10 @@ def main() -> int:
     kernels, edge = kernel_phase(num, fex, sex, rec["nrhs"],
                                  rec["launches"])
     emit("kernel_edge_cases", card=card, **edge)
+    emit("update_synthetic", card=card, **update_synthetic())
+    k3_ms = next(k["ms"] for k in kernels if k["name"] == "update")
+    emit("update_rates", card=card, matrix=rec["matrix"], kernel="update",
+         **update_rates(rec["update_gflop"], k3_ms))
     if args.profile:
         emit("profile", card=card, matrix=rec["matrix"], schedule="scan",
              file=args.profile,
@@ -1079,6 +1233,9 @@ def main() -> int:
                                      rec["launches"], run_times=True)
     kernels += rows
     emit("stream_kernels", card=card, matrix=rec["matrix"], **detail)
+    emit("update_rates", card=card, matrix=rec["matrix"],
+         kernel="mega_factor UPD runs", **update_rates(
+             rec["update_gflop"], detail["mega_factor"]["run_times"]["upd_ms"]))
     emit("stream_edge_cases", card=card, **edge_stream_phase())
     if args.profile:
         emit("profile", card=card, matrix=rec["matrix"], schedule="mega",
@@ -1089,17 +1246,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     if not args.no_large:
+        # both main paths again; the update kernel held against its plain
+        # version at every level, the factor stream kernel against its plain
+        # version and the level executor's factor
         for schedule in ("scan", "mega"):
             rec64, num, fex, sex = main_path(64, card, False, schedule)
             emit("main_path", **rec64)
-            if schedule == "mega":
-                from spllt_tpu_torch.numeric.assemble import assemble_torch
-
-                pool0 = assemble_torch(num.plan, num.values_perm,
-                                       torch.float32, num.pool.device)
+            if schedule == "scan":
+                k3 = update_levels_check(num, fex)
+                emit("update_rates", card=card, matrix=rec64["matrix"],
+                     kernel="update", levels_checked=k3["levels_checked"],
+                     max_rel_err=k3["max_rel_err"], **update_rates(
+                         rec64["update_gflop"], k3["ms"]))
+                scan_pool = num.pool
+            else:
+                pool0, got, checks = mega_factor_check(num, fex, scan_pool)
+                del got, scan_pool
+                work = factor_stream_work(fex.stream, 128, 4)
+                rt = factor_run_times(fex, pool0, work)
+                acc = Acc()
+                add_bound(acc, work)
+                # whole_ms is the mega_factor kernel's time at this size
                 emit("stream_run_times", card=card, matrix=rec64["matrix"],
-                     **factor_run_times(
-                         fex, pool0, factor_stream_work(fex.stream, 128, 4)))
+                     bound_ms=(acc.tb + acc.to) * 1e3,
+                     bound_by="bytes" if acc.tb >= acc.to else "operations",
+                     checks=checks, **rt)
+                emit("update_rates", card=card, matrix=rec64["matrix"],
+                     kernel="mega_factor UPD runs",
+                     **update_rates(rec64["update_gflop"], rt["upd_ms"]))
                 del pool0
             if args.profile:
                 path = f"{args.profile}.large.{schedule}"

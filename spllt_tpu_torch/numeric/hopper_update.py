@@ -24,12 +24,15 @@ thread — loops over the segment's tasks, keeps the sum in registers and
 subtracts it from the destination once: deterministic, no atomics.  The
 gathers are exact indexed row loads, not one-hot products; operands are
 staged through double-buffered shared-memory slabs of 8 contraction steps.
-The kernel stops the contraction at ``srcn`` and skips fully masked 64-wide
-halves of a task.
+The kernel stops the contraction at ``srcn``, skips fully masked 64-wide
+halves of a task, and a warp skips its 8 destination rows when they are
+all masked (``EXEC_ROWS``, ``EXEC_COLS``, ``EXEC_SLAB`` state that
+granularity).
 
 This module also holds the port's own copy of ``build_micro_tasks`` (pure
-NumPy) and ``tasks_to_device``, which checks the tables and computes the
-segment offsets.
+NumPy), ``tasks_to_device``, which checks the tables and computes the
+segment offsets, and ``edge_case_tasks``, the hand-made tables of the
+kernels' checks on the card.
 """
 
 from __future__ import annotations
@@ -41,8 +44,15 @@ import torch
 
 from ._build import check_launch, load, require_cuda_tensors
 
-__all__ = ["build_micro_tasks", "tasks_to_device", "apply_updates",
-           "apply_updates_plain"]
+__all__ = ["build_micro_tasks", "tasks_to_device", "edge_case_tasks",
+           "apply_updates", "apply_updates_plain", "EXEC_ROWS", "EXEC_COLS",
+           "EXEC_SLAB"]
+
+# The kernel's arithmetic, per micro-task, covers the aligned blocks of
+# EXEC_ROWS rows and EXEC_COLS columns that hold a live entry, over srcn
+# rounded up to EXEC_SLAB contraction steps (csrc/update_body.cuh: a warp's
+# rows, half a 128-wide piece, one slab) — at every nb.
+EXEC_ROWS, EXEC_COLS, EXEC_SLAB = 8, 64, 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_update_{s}": [_P] * 9 + [_I, _I, _P] for s in ("f32", "f64")}
@@ -162,6 +172,51 @@ def tasks_to_device(tasks: dict, nb: int, pool_rows: int, device) -> dict:
                                device=device) for nm in _TASK_KEYS}
     out["seg_ptr"] = torch.as_tensor(seg_ptr, device=device)
     return out
+
+
+def edge_case_tasks(nb: int, pool_rows: int, seed: int) -> dict:
+    """A hand-made micro-task table (NumPy, as :func:`build_micro_tasks`
+    returns it) that stresses the kernel's masks and skip rules, for the
+    checks on the card.  Destinations are tiles 0–3, every window lies
+    at or above row 4·nb (so no destination is also a source):
+
+    * tile 0, an 11-task segment: live rows scattered over the whole tile
+      (every warp's rows); exactly one live row and one live column;
+      every live row on one source row; an all-masked task in the middle;
+      ``srcn`` through 0, 1, 15, 16, 17 and nb; ``blkn`` < nb;
+    * tile 1: one dense task (identity maps, full width);
+    * tile 2: three tasks with random masks and ``blkn`` of 1 and nb // 3;
+    * tile 3: one task whose live rows all lie in the tile's last row and
+      live columns in its first (at nb = 256 only one of the four 128 x 128
+      pieces has work)."""
+    rng = np.random.default_rng(seed)
+    seg_len = [11, 1, 3, 1]
+    k = sum(seg_len)
+    ar = np.arange(nb)
+    rand = lambda p: np.where(rng.random(nb) < p, rng.integers(0, nb, nb),
+                              -1)
+    relr = np.stack([rand(0.6) for _ in range(k)])
+    relc = np.stack([rand(0.6) for _ in range(k)])
+    relr[0] = np.where(ar % 3 == 1, rng.permutation(nb), -1)   # scattered
+    relr[1], relc[1] = -1, -1                                  # one and one
+    relr[1, nb - 1], relc[1, nb // 2] = rng.integers(0, nb, 2)
+    relr[2] = np.where(ar % 3 != 1, 5, -1)                     # one source
+    relr[5] = -1                                               # all masked
+    relr[11] = relc[11] = ar                                   # dense
+    relr[15], relc[15] = -1, -1
+    relr[15, nb - 1], relc[15, 0] = 0, nb - 1
+    srcn = np.full(k, nb)
+    srcn[:11] = [nb, 1, 16, 15, 17, nb, 0, 16, 1, 17, nb]
+    srcn[12:15] = rng.integers(1, nb + 1, 3)
+    blkn = np.full(k, nb)
+    blkn[[3, 7, 9]] = [nb - 1, nb // 2, 1]
+    blkn[12:15] = [1, max(1, nb // 3), nb]
+    lo = rng.integers(4 * nb, pool_rows - nb + 1, size=(2, k))
+    lo[:, 4] = pool_rows - nb                                  # at the end
+    return {"dst": np.repeat(np.arange(4), seg_len).astype(np.int32),
+            "lor": lo[0].astype(np.int32), "loc": lo[1].astype(np.int32),
+            "blkn": blkn.astype(np.int32), "srcn": srcn.astype(np.int32),
+            "relr": relr.astype(np.int32), "relc": relc.astype(np.int32)}
 
 
 def apply_updates_plain(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:

@@ -27,6 +27,7 @@ from spllt_tpu.numeric.stf import factorize_np
 from spllt_tpu.plan.solve_mega import build_solve_mega_plan as bsmp_j
 from spllt_tpu_torch.api import _plans as plans_t
 from spllt_tpu_torch.convert import numeric_from_numpy, numeric_to_numpy
+from spllt_tpu_torch.numeric import hopper_update as hu_t
 from spllt_tpu_torch.numeric import megakernel as mk_t
 from spllt_tpu_torch.numeric import solve_mega as sm_t
 from spllt_tpu_torch.numeric.assemble import assemble_np, assemble_torch
@@ -225,6 +226,49 @@ def test_stream_tables_reject_bad_input():
             sm_t.solve_stream([dict(run, **{key: val})], nb, rows, 40)
 
 
+@pytest.mark.parametrize("nb", [48, 128, 256])
+def test_update_edge_case_tasks(nb):
+    """The hand-made update tasks of the card's edge-stream checks are valid
+    tables with the cases they name, and the factor stream's plain version
+    on them equals the update written out in NumPy (float64, 1e-12)."""
+    rows = 12 * nb
+    tasks = hu_t.edge_case_tasks(nb, rows, seed=nb)
+    dev = hu_t.tasks_to_device(tasks, nb, rows, "cpu")      # validates
+    assert dev["seg_ptr"].tolist() == [0, 11, 12, 15, 16]
+    live_r = (tasks["relr"] >= 0).sum(1)
+    live_c = ((tasks["relc"] >= 0)
+              & (np.arange(nb)[None] < tasks["blkn"][:, None])).sum(1)
+    assert live_r[0] >= 16                 # a live row for every warp
+    assert live_r[1] == live_c[1] == 1
+    assert len(set(tasks["relr"][2][tasks["relr"][2] >= 0])) == 1
+    # an all-masked task in the middle of the 11-task segment
+    assert live_r[5] == 0 and live_r[4] > 0 and live_r[6] > 0
+    assert tasks["dst"][0] == tasks["dst"][5] == tasks["dst"][10]
+    assert {0, 1, 15, 16, 17, nb} <= set(tasks["srcn"][:11].tolist())
+    assert (tasks["blkn"] < nb).any()
+    assert min(tasks["lor"].min(), tasks["loc"].min()) >= 4 * nb
+    rng = np.random.default_rng(1)
+    pool = rng.standard_normal((rows, nb))
+    stream = mk_t.stream_to_device(mk_t.assemble_stream([
+        (mk_t.KIND_UPD, {"wr": tasks["lor"], "wc": tasks["loc"],
+                         "dst": tasks["dst"].astype(np.int64) * nb,
+                         "aux": tasks["blkn"], "srcn": tasks["srcn"]},
+         tasks["relr"], tasks["relc"])], nb, rows), "cpu")
+    got = mk_t.mega_factorize(torch.as_tensor(pool.copy()), stream).numpy()
+    ref = pool.copy()
+    ar = np.arange(nb)
+    for t in range(len(tasks["dst"])):
+        kn, relr, relc = tasks["srcn"][t], tasks["relr"][t], tasks["relc"][t]
+        r = np.where((relr >= 0)[:, None],
+                     pool[tasks["lor"][t] + np.maximum(relr, 0), :kn], 0)
+        c = np.where(((relc >= 0) & (ar < tasks["blkn"][t]))[:, None],
+                     pool[tasks["loc"][t] + np.maximum(relc, 0), :kn], 0)
+        d0 = tasks["dst"][t] * nb
+        ref[d0:d0 + nb] -= r @ c.T
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+
+
 # --------------------------------------------------------------------- #
 # the slice as a whole, through the public API of both packages
 # --------------------------------------------------------------------- #
@@ -288,13 +332,26 @@ def test_api_mega_factor_pools(case):
         1e-12 * np.abs(ref).max()
 
 
+def reference_solve(case, job, nrhs):
+    """The reference's unrefined solution of ``rhs(a, nrhs, seed=job)``.
+    The right-hand sides of nrhs 1 and 3 are solved as one block of four
+    columns (the columns are independent), so each job compiles once."""
+    cache = case.setdefault("ref_solves", {})
+    if job not in cache:
+        b1, b3 = rhs(case["at"], 1, seed=job), rhs(case["at"], 3, seed=job)
+        x = sj.solve(case["num_j"], np.column_stack([b1, b3]), job=job,
+                     refine=0)
+        cache[job] = {1: x[:, 0], 3: x[:, 1:]}
+    return cache[job][nrhs]
+
+
 @pytest.mark.parametrize("nrhs", [1, 3])
 @pytest.mark.parametrize("job", [0, 1, 2])
 def test_api_mega_solve_jobs_match_reference(case, job, nrhs):
     """Unrefined solves of the port (f64, stream executor) against the
     reference's scan path: 1e-10; shapes [n] and [n, nrhs] are kept."""
     b = rhs(case["at"], nrhs, seed=job)
-    ref = sj.solve(case["num_j"], b, job=job, refine=0)
+    ref = reference_solve(case, job, nrhs)
     got = st.solve(case["num_t64"], b, job=job, refine=0)
     assert got.shape == b.shape and got.dtype == np.float64
     np.testing.assert_allclose(got, ref, rtol=0,
@@ -401,9 +458,11 @@ def test_api_mega_convert_round_trip(case):
 def test_cuda_stream_kernels_match_plain_versions():
     """On a machine with an NVIDIA GPU and nvcc: the factor stream kernel
     and the solve stream kernel against their plain versions on poisson3d(8)
-    at nb=128, with 1, 3 and all blocks (float32 1e-5, float64 1e-11 of
-    max|ref|).  ``python3 chip_smoke.py`` runs the same comparison at the
-    main path's shapes and on hand-made edge streams."""
+    at nb=128, and the factor stream and the update kernel on the
+    hand-made update tasks at nb=128, with 1, 3 and all blocks (float32
+    1e-5, float64 1e-11 of max|ref|; of the size of the update for the
+    update tasks).  ``python3 chip_smoke.py`` runs the same comparisons at
+    the main path's shapes and on more edge streams."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no "
                     "interpret mode")
@@ -415,13 +474,31 @@ def test_cuda_stream_kernels_match_plain_versions():
     smp = bsmp_t(symb, plan)
     stream = mk_t.stream_to_device(mk_t.build_mega_stream(fplan, rows),
                                    "cuda")
+    erows = 12 * 128
+    etasks = hu_t.edge_case_tasks(128, erows, seed=128)
+    estream = mk_t.stream_to_device(mk_t.assemble_stream([
+        (mk_t.KIND_UPD, {"wr": etasks["lor"], "wc": etasks["loc"],
+                         "dst": etasks["dst"].astype(np.int64) * 128,
+                         "aux": etasks["blkn"], "srcn": etasks["srcn"]},
+         etasks["relr"], etasks["relc"])], 128, erows), "cuda")
+    edev = hu_t.tasks_to_device(etasks, 128, erows, "cuda")
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-11)):
         pool0 = assemble_torch(plan, symb.a_perm.values, dtype, "cuda")
         ref = mk_t.mega_factorize_plain(pool0.clone().view(-1, 128), stream)
+        epool = torch.randn(erows, 128, dtype=dtype, device="cuda")
+        eref = mk_t.mega_factorize_plain(epool.clone(), estream)
+        escale = (eref - epool).abs().max()
+        efull = mk_t.mega_factorize(epool.clone(), estream)
         for mb in (1, 3, 0):
             got = mk_t.mega_factorize(pool0.clone().view(-1, 128), stream,
                                       max_blocks=mb)
             assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+            got = mk_t.mega_factorize(epool.clone(), estream, max_blocks=mb)
+            assert float((got - eref).abs().max() / escale) <= tol
+            assert torch.equal(got, efull)
+        got = hu_t.apply_updates(epool.clone(), edev)
+        assert float((got - hu_t.apply_updates_plain(epool.clone(), edev))
+                     .abs().max() / escale) <= tol
         w0 = torch.randn(smp.P + smp.X, 5, dtype=dtype, device="cuda")
         w0[:smp.P] = 0
         for runs in (smp.fwd_runs, smp.bwd_runs):
