@@ -4,6 +4,9 @@
     python3 chip_smoke.py                 # everything, as described below
     python3 chip_smoke.py --no-large      # skip the poisson3d(64) runs
     python3 chip_smoke.py --profile FILE  # also a torch.profiler table
+    python3 chip_smoke.py --solve-only    # only steps 3 and 5 for the solve
+                                          # stream kernel (add --no-run-times
+                                          # to time another tree's kernel)
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -12,8 +15,9 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      — analyse → factor → refined solve of poisson3d(32) at nb=128, float32,
      nrhs=4 — with every kernel's launch count set to 0 just before and read
      just after, then checks the backward error, a refactorization that must
-     reuse the cached plans and executors, the not-positive-definite guard
-     and jobs 1+2 = 0;
+     reuse the cached plans and executors, a factorization with TF32
+     switched on for the process (precision='highest' must ignore it), the
+     not-positive-definite guard and jobs 1+2 = 0;
   3. drives the stream path (``schedule='mega'``: the whole factorization as
      one kernel, each solve sweep as one kernel) the same way, with the same
      checks, and requires the stream executors to be the ones that ran;
@@ -22,12 +26,18 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      path gave them (one comparison per level of the plan), the two stream
      kernels on the poisson3d(32) pool (also against the level executor's
      factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
-     run with 1, 3 and all blocks; and times them there (CUDA events, after
-     a warm-up);
+     run with 1, 3 and all blocks (the solve stream's at nrhs 1 to 128 with
+     tiles whose kv sits at the edges of its 32-column panels, nb 48, 128
+     and 256, float32 and float64); and times them there (CUDA events,
+     after a warm-up), the stream kernels also run by run
+     (``stream_run_times``, ``solve_run_times``: by kind and over the runs
+     with fewer work items than blocks);
   5. repeats both main paths at poisson3d(64) (unless ``--no-large``),
-     holding the update kernel against its plain version at every level
-     and the factor stream kernel against its plain version and the level
-     executor's factor there too.
+     holding the update kernel against its plain version at every level,
+     the factor stream kernel against its plain version and the level
+     executor's factor, and the solve stream kernel against its plain
+     version per direction at nrhs 1, 4 and 64, with the per-run times of
+     both stream kernels.
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -327,13 +337,23 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
         else:
             raise AssertionError("indefinite matrix did not raise "
                                  "NotPositiveDefiniteError")
+        # precision='highest' holds with TF32 switched on for the process
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            pool_tf32 = st.factor(symb).pool
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_rel = rel_err(pool_tf32, num.pool)[1]
+        require(tf32_rel <= 1e-5, f"global TF32 changed the factor under "
+                                  f"precision='highest': rel {tf32_rel}")
+        del pool_tf32
         # jobs 1 then 2 equal job 0 unrefined
         x0 = st.solve(num, b, job=0, refine=0)
         x12 = st.solve(num, st.solve(num, b, job=1), job=2)
         djobs = float(np.abs(x12 - x0).max() / np.abs(x0).max())
         require(djobs <= 1e-5, f"jobs 1+2 differ from job 0 by {djobs}")
         rec.update(refactor_bwd_err=err2, jobs12_vs_job0_rel=djobs,
-                   indefinite_raises=True)
+                   indefinite_raises=True, global_tf32_factor_rel=tf32_rel)
     return rec, num, fex, sex
 
 
@@ -873,7 +893,7 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     version and against the level executor's factor ``scan_pool``; each
     solve direction against its plain version at nrhs 1, ``nrhs`` and 64.
     Returns (kernel rows, details)."""
-    from spllt_tpu_torch.numeric import megakernel, solve_mega
+    from spllt_tpu_torch.numeric import megakernel
 
     nb, esz = fex.nb, 4
     TOL32 = 1e-5        # of max|ref|: other summation order, sqrt/division
@@ -910,6 +930,27 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     del buf, pool0
 
     # ---- K6 ---- #
+    per_nrhs, acc = mega_solve_check(num, sex, nrhs, rng)
+    rows.append(kernel_row(
+        "mega_solve", "mega_solve", "spllt_tpu/numeric/solve_mega.py:432",
+        acc, "forward+backward sweep",
+        f"work [{sex.work_rows},{nrhs}], pool [{sex.pool_rows},{nb}]",
+        launches, TOL32))
+    detail["mega_solve"] = per_nrhs
+    return rows, detail
+
+
+def mega_solve_check(num, sex, nrhs, rng, tol: float = 1e-5):
+    """K6 at the shapes the stream main path gives it: each solve direction
+    of ``sex`` on the factor of ``num`` against its plain version (within
+    ``tol`` of max|ref|: other summation order, division rounding) at nrhs
+    1, ``nrhs`` and 64, then timed (CUDA events, a fresh copy of the work
+    array before each launch).  Returns (per direction and nrhs: errors,
+    times, runs, tasks, blocks; an :class:`Acc` holding one forward +
+    backward sweep at ``nrhs`` with its bound)."""
+    from spllt_tpu_torch.numeric import solve_mega
+
+    nb = sex.nb
     poolf = num.pool.view(-1, nb)
     acc = Acc()
     per_nrhs = {}
@@ -927,17 +968,22 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
             ref = solve_mega.mega_solve_plain(poolf, w0.clone(), st_d)
             torch.cuda.synchronize()
             mabs, rel = rel_err(got, ref)
-            require(rel <= TOL32, f"mega_solve {tag} nrhs={r_}: kernel "
-                                  f"differs from the plain version: rel "
-                                  f"{rel} > {TOL32}")
+            require(rel <= tol, f"mega_solve {tag} nrhs={r_}: kernel "
+                                f"differs from the plain version: rel "
+                                f"{rel} > {tol}")
+            del got, ref
             ms = time_prepared_ms(
                 lambda: buf.copy_(w0),
                 lambda: solve_mega.mega_solve(poolf, buf, st_d), 3)
             pms = time_prepared_ms(
                 lambda: buf.copy_(w0),
                 lambda: solve_mega.mega_solve_plain(poolf, buf, st_d), 1)
+            work = solve_stream_work(st_d, nb, r_, 4)
+            wacc = Acc()
+            add_bound(wacc, work)
             per_nrhs[f"{tag}_nrhs{r_}"] = dict(
                 max_abs=mabs, rel=rel, ms=ms, plain_ms=pms,
+                bound_ms=(wacc.tb + wacc.to) * 1e3,
                 runs=len(st_d["host"]["run_kind"]),
                 tasks=int(st_d["dst"].shape[0]),
                 blocks=solve_mega.mega_solve.last_grid)
@@ -946,16 +992,69 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
                 acc.ms += ms
                 acc.pms += pms
                 acc.mabs, acc.rel = max(acc.mabs, mabs), max(acc.rel, rel)
-                add_bound(acc, solve_stream_work(st_d, nb, r_, esz))
-            del got, ref
+                add_bound(acc, work)
         del w0, buf, x
-    rows.append(kernel_row(
-        "mega_solve", "mega_solve", "spllt_tpu/numeric/solve_mega.py:432",
-        acc, "forward+backward sweep",
-        f"work [{sex.work_rows},{nrhs}], pool [{sex.pool_rows},{nb}]",
-        launches, TOL32))
-    detail["mega_solve"] = per_nrhs
-    return rows, detail
+    return per_nrhs, acc
+
+
+SOLVE_KINDS = ("addg", "mm", "mm", "sol", "sol")   # by run kind 0..4
+
+
+def solve_run_times(num, sex, nrhs_list=(4, 64)) -> dict:
+    """Time of each run of both solve streams, as the difference of the
+    times of the stream cut after that run and after the one before (one
+    launch each, on a fresh copy of the work array), summed by kind (ADDG,
+    MM/MMT, SOL/SOLT) and over the runs that have fewer work items than the
+    kernel has blocks, beside the bound of the whole stream (from
+    :func:`solve_stream_work`)."""
+    from spllt_tpu_torch.numeric import solve_mega
+
+    nb = sex.nb
+    poolf = num.pool.view(-1, nb)
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for r_ in nrhs_list:
+        x = torch.zeros((num.symb.n + 1, r_), dtype=torch.float32,
+                        device="cuda")
+        x[:-1] = torch.as_tensor(
+            rng.standard_normal((num.symb.n, r_), dtype=np.float32),
+            device="cuda")
+        w0 = sex._work(x)
+        buf = torch.empty_like(w0)
+        for d, tag in ((0, "fwd"), (1, "bwd")):
+            stream = sex._streams[d]
+            work = solve_stream_work(stream, nb, r_, 4)
+            items = [len(it) for it in solve_mega.work_items(stream, r_)]
+            acc = Acc()
+            add_bound(acc, work)
+            prev, narrow_ms, narrow_runs = 0.0, 0.0, 0
+            by_kind = {"addg": 0.0, "mm": 0.0, "sol": 0.0}
+            runs_by_kind = {"addg": 0, "mm": 0, "sol": 0}
+            grid = 0
+            for r in range(1, len(work) + 1):
+                cut = dict(stream, run_kind=stream["run_kind"][:r])
+                t = time_prepared_ms(
+                    lambda: buf.copy_(w0),
+                    lambda: solve_mega.mega_solve(poolf, buf, cut), 1)
+                grid = solve_mega.mega_solve.last_grid
+                dt = max(t - prev, 0.0)
+                prev = t
+                kind = SOLVE_KINDS[work[r - 1][0]]
+                by_kind[kind] += dt
+                runs_by_kind[kind] += 1
+                if items[r - 1] < grid:
+                    narrow_ms += dt
+                    narrow_runs += 1
+            out[f"{tag}_nrhs{r_}"] = dict(
+                runs=len(work), blocks=grid, whole_ms=prev,
+                **{f"{k}_ms": v for k, v in by_kind.items()},
+                **{f"{k}_runs": v for k, v in runs_by_kind.items()},
+                runs_with_fewer_items_than_blocks=narrow_runs,
+                ms_in_those_runs=narrow_ms,
+                bound_ms=(acc.tb + acc.to) * 1e3,
+                bound_by="bytes" if acc.tb >= acc.to else "operations")
+        del w0, buf, x
+    return out
 
 
 def edge_stream_phase():
@@ -1107,6 +1206,29 @@ def edge_stream_phase():
                   lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
                   dtype)
 
+    # ---- solve streams at the edges of the rhs chunks and of the panels of
+    # the blocked substitution: one chain ADDG -> MM -> SOL -> SOLT -> MMT,
+    # each run reading what the one before wrote ---- #
+    for nb in (48, 128, 256):
+        for dtype in (torch.float32, torch.float64):
+            runs, kvs, nblk, wrows = sm.edge_case_runs(nb, SEED + nb)
+            pool0 = torch.as_tensor(rng.standard_normal((nblk, nb, nb)),
+                                    dtype=dtype, device="cuda")
+            kv_t = torch.as_tensor(np.asarray(kvs, np.int32), device="cuda")
+            k = len(kvs)
+            pool0[:k] = potrf_plain(spd_tiles(rng, kvs, nb, dtype), kv_t)
+            poolf = pool0.view(-1, nb)
+            st_d = sm.stream_to_device(
+                sm.solve_stream(runs, nb, nblk * nb, wrows), "cuda")
+            for r_ in (1, 3, 4, 16, 63, 64, 65, 128):
+                w0 = torch.as_tensor(rng.standard_normal((wrows, r_)),
+                                     dtype=dtype, device="cuda")
+                check(f"solve_edges_nb{nb}_{str(dtype)[-7:]}_nrhs{r_}",
+                      lambda mb: sm.mega_solve(poolf, w0.clone(), st_d,
+                                               max_blocks=mb),
+                      lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
+                      dtype)
+
     # ---- update tasks that stress the masks and skip rules: K4 and K3 ---- #
     for nb in (48, 128, 256):
         for dtype in (torch.float32, torch.float64):
@@ -1184,11 +1306,61 @@ def profile_main_path(num, fex, sex, nrhs, path):
     return shares
 
 
+def solve_stream_phase(num, sex, rec, card, run_times: bool = True) -> dict:
+    """K6 on the stream main path of ``sex``: each direction against its
+    plain version at nrhs 1, 4 and 64 and timed, and its per-run times."""
+    rng = np.random.default_rng(SEED + 6)
+    per_nrhs, acc = mega_solve_check(num, sex, rec["nrhs"], rng)
+    row = dict(ms=acc.ms, plain_ms=acc.pms, bound_ms=(acc.tb + acc.to) * 1e3,
+               bound_by="bytes" if acc.tb >= acc.to else "operations",
+               max_abs_err=acc.mabs, rel_err=acc.rel,
+               launches=rec["launches"]["mega_solve"],
+               per="forward+backward sweep",
+               shape=f"work [{sex.work_rows},{rec['nrhs']}], pool "
+                     f"[{sex.pool_rows},{sex.nb}]")
+    emit("stream_kernels", card=card, matrix=rec["matrix"],
+         mega_solve_row=row, mega_solve=per_nrhs)
+    if run_times:
+        emit("solve_run_times", card=card, matrix=rec["matrix"],
+             **solve_run_times(num, sex))
+    return row
+
+
+def solve_only(card: str, large: bool, run_times: bool,
+               t_start: float) -> int:
+    """``--solve-only``: the stream main path at poisson3d(32) and (64), K6
+    held against its plain version and timed there, and its per-run times.
+    Runs against any tree whose package has the same stream executor (to
+    compare two trees in one call)."""
+    rows = []
+    for m in (32, 64) if large else (32,):
+        rec, num, fex, sex = main_path(m, card, False, "mega")
+        emit("main_path", **rec)
+        rows.append(dict(matrix=rec["matrix"],
+                         **solve_stream_phase(num, sex, rec, card,
+                                              run_times)))
+        del num, fex, sex
+        torch.cuda.empty_cache()
+    print(json.dumps({"mega_solve_rows": rows}), flush=True)
+    emit("elapsed", seconds=time.perf_counter() - t_start)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-large", action="store_true",
                     help="skip the poisson3d(64) main-path runs")
+    ap.add_argument("--solve-only", action="store_true",
+                    help="only the stream main path and the solve stream "
+                         "kernel's checks and times (poisson3d 32 and 64)")
+    ap.add_argument("--no-run-times", action="store_true",
+                    help="with --solve-only: skip the per-run times (for a "
+                         "tree whose solve stream has no work_items)")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -1208,6 +1380,9 @@ def main() -> int:
     emit("device", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
     emit("build", seconds=build_all())
+    if args.solve_only:
+        return solve_only(card, not args.no_large, not args.no_run_times,
+                          t_start)
 
     # level path (schedule='scan') and its four kernels
     rec, num, fex, sex = main_path(32, card, True, "scan")
@@ -1233,6 +1408,8 @@ def main() -> int:
                                      rec["launches"], run_times=True)
     kernels += rows
     emit("stream_kernels", card=card, matrix=rec["matrix"], **detail)
+    emit("solve_run_times", card=card, matrix=rec["matrix"],
+         **solve_run_times(num, sex))
     emit("update_rates", card=card, matrix=rec["matrix"],
          kernel="mega_factor UPD runs", **update_rates(
              rec["update_gflop"], detail["mega_factor"]["run_times"]["upd_ms"]))
@@ -1275,6 +1452,7 @@ def main() -> int:
                      kernel="mega_factor UPD runs",
                      **update_rates(rec64["update_gflop"], rt["upd_ms"]))
                 del pool0
+                solve_stream_phase(num, sex, rec64, card)
             if args.profile:
                 path = f"{args.profile}.large.{schedule}"
                 emit("profile", card=card, matrix=rec64["matrix"],

@@ -68,6 +68,16 @@ def _check_ported(options: Options) -> None:
         raise NotImplementedError(
             "not ported yet: Options(coarse_subtrees=True) (dense leaf "
             "subtrees)")
+    defaults = Options()
+    for name in ("coarse_span", "coarse_waste"):
+        if getattr(options, name) != getattr(defaults, name):
+            raise NotImplementedError(
+                f"not ported yet: Options({name}=...) (dense leaf "
+                "subtrees)")
+    for name in ("trace", "timers"):
+        if getattr(options, name):
+            raise NotImplementedError(
+                f"not ported yet: Options({name}=True) (diagnostics)")
 
 
 def _resolve_device(options: Options) -> torch.device:
@@ -195,8 +205,9 @@ def solve(num: NumericFactor, b: np.ndarray, job: int = 0,
     NumPy array of the same shape.  For job=0 with ``refine`` > 0 steps
     (default from options), runs f64 iterative refinement — restoring
     double-precision backward error from the f32 factor.  In batched mode
-    the whole refined solve runs on the device the pool lies on; in stf
-    mode the residuals are computed on the host.
+    with ``refine_device`` (the default) the whole refined solve runs on the
+    device the pool lies on; otherwise, and in stf mode, the residuals are
+    computed on the host.
     """
     b = np.asarray(b)
     symb = num.symb
@@ -207,7 +218,8 @@ def solve(num: NumericFactor, b: np.ndarray, job: int = 0,
     if job != 0:
         refine = 0
 
-    if job == 0 and refine > 0 and num.options.mode == "batched":
+    if job == 0 and refine > 0 and num.options.mode == "batched" \
+            and num.options.refine_device:
         x = _solve_refined_device(num, bb, refine)
         return x[:, 0] if one_d else x
 

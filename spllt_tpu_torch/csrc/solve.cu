@@ -20,8 +20,8 @@
 // is read from global memory.  The rhs chunk lives in shared memory and
 // turns into y in place; the rectangular part (rows >= kv) is one pass
 // without barriers, the triangle takes two barriers per column.  The solve
-// itself is left_solve_tile in solve_body.cuh, which the solve stream kernel
-// (mega_solve.cu) runs too.
+// itself is left_solve_tile in solve_body.cuh (the solve stream kernel,
+// mega_solve.cu, has its own blocked substitution).
 #include "solve_body.cuh"
 
 namespace {
@@ -37,7 +37,7 @@ __global__ void left_solve_kernel(const T* __restrict__ tiles,
   const int c0 = blockIdx.y * kRhsChunk;
   const size_t zoff = (size_t)blockIdx.x * nb * nrhs + c0;
   left_solve_tile<T>(tiles + (size_t)blockIdx.x * nb * nb, z + zoff, y + zoff,
-                     (T*)nullptr, kvec[blockIdx.x], nb,
+                     kvec[blockIdx.x], nb,
                      min(kRhsChunk, nrhs - c0), nrhs, min(kRhsChunk, nrhs),
                      transpose, in_smem, smem_raw, threadIdx.x, blockDim.x);
 }

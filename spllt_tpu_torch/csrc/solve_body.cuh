@@ -15,9 +15,8 @@
 // otherwise it is read from global memory.  The rhs chunk lives in shared
 // memory and turns into y in place; the rectangular part (rows >= kv) is
 // one pass without barriers, the triangle takes two barriers per column.
-// y is written to y0 and, when y1 is not null, to y1 as well (the solve
-// stream keeps a solved window in its panel and in its rhs slot); z may be
-// y0: the chunk is read whole before anything is written.
+// y is written to y0; z may be y0: the chunk is read whole before anything
+// is written.
 #pragma once
 #include "common.cuh"
 
@@ -36,7 +35,7 @@ inline size_t left_solve_smem(int nb, int zcap, bool in_smem) {
 // before the shared memory is used again.
 template <typename T>
 __device__ __forceinline__ void left_solve_tile(
-    const T* tile, const T* zin, T* y0, T* y1, int kv, int nb, int rc,
+    const T* tile, const T* zin, T* y0, int kv, int nb, int rc,
     int ldz, int zcap, int transpose, int in_smem, unsigned char* smem_raw,
     int tid, int nt) {
   T* zs = reinterpret_cast<T*>(smem_raw);          // [nb, rc]
@@ -98,7 +97,6 @@ __device__ __forceinline__ void left_solve_tile(
   for (int idx = tid; idx < nb * rc; idx += nt) {
     const int i = idx / rc, r = idx - i * rc;
     y0[(size_t)i * ldz + r] = zs[idx];
-    if (y1) y1[(size_t)i * ldz + r] = zs[idx];
   }
 }
 

@@ -22,6 +22,8 @@ On CPU tensors each kernel wrapper takes its plain version.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -29,7 +31,7 @@ from .hopper_potrf import potrf
 from .hopper_trsm import trsm
 from .hopper_update import apply_updates, build_micro_tasks, tasks_to_device
 
-__all__ = ["ScanFactorExecutor", "canonical_device"]
+__all__ = ["ScanFactorExecutor", "canonical_device", "pinned_precision"]
 
 
 def canonical_device(device) -> torch.device:
@@ -41,13 +43,39 @@ def canonical_device(device) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def pinned_precision(precision: str):
+    """Run the block's float32 ``torch.bmm`` products with the precision
+    ``Options.precision`` asks for, whatever the process-wide cuBLAS
+    setting (``torch.backends.cuda.matmul.allow_tf32``, which
+    ``torch.set_float32_matmul_precision`` also sets, or its newer form
+    ``torch.backends.cuda.matmul.fp32_precision``), and restore that setting
+    afterwards through the same interface.  ``'highest'`` is IEEE float32.
+    ``'high'`` and ``'default'`` are IEEE float32 as well until tensor-core
+    bodies port them (they are then more accurate than the reference's,
+    not less)."""
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(f"unknown precision {precision!r}")
+    mm = torch.backends.cuda.matmul
+    try:
+        prev, name, ieee = mm.allow_tf32, "allow_tf32", False
+    except RuntimeError:      # the process set the newer interface
+        prev, name, ieee = mm.fp32_precision, "fp32_precision", "ieee"
+    setattr(mm, name, ieee)
+    try:
+        yield
+    finally:
+        setattr(mm, name, prev)
+
+
 class ScanFactorExecutor:
     """Holds the per-level index tables of one FactorPlan on ``device``.
 
     The tables do not depend on the matrix values, so one executor serves
     every refactorization of the same pattern.  ``matmul_precision`` is
-    recorded for the caller's cache key; all arithmetic is IEEE in
-    ``dtype`` for now.
+    ``Options.precision``: the products run under
+    :func:`pinned_precision` (IEEE in ``dtype`` for all three values for
+    now).
     """
 
     def __init__(self, fp, dtype: torch.dtype = torch.float32,
@@ -107,6 +135,12 @@ class ScanFactorExecutor:
                 f"pool must be contiguous {self.dtype} on {self.device}, "
                 f"got {pool.dtype} on {pool.device}")
         poolf = pool.view(-1, self.nb)
+        with pinned_precision(self.precision):
+            self._levels(pool, poolf)
+        notpos = torch.isnan(pool[:, 0, 0].sum())
+        return pool, notpos
+
+    def _levels(self, pool, poolf):
         for lv in self.levels:
             if "upd" in lv:
                 apply_updates(poolf, lv["upd"])
@@ -120,5 +154,3 @@ class ScanFactorExecutor:
             if "trsm" in lv:
                 diag, dst, kv = lv["trsm"]
                 pool[dst] = trsm(pool[diag], pool[dst], kv)
-        notpos = torch.isnan(pool[:, 0, 0].sum())
-        return pool, notpos

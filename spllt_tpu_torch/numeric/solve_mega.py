@@ -18,6 +18,11 @@ Tables of one direction:
   seg_ptr, run_seg [R+1]        ADDG/MM/MMT run r:
                                 seg_ptr[run_seg[r]:run_seg[r+1]] are the
                                 task offsets of its runs of equal dst
+  run_split [R]                 1, 2 or 4: how much finer the kernel cuts
+                                the work items of a run with few of them
+                                (MM/MMT: destination bands of 128 / split
+                                rows; SOL/SOLT: rhs chunks of
+                                max(16, 64 / split) columns)
 
 What crosses over from ``spllt_tpu.numeric.solve_mega`` is the plan's run
 list.  Its ``chunk_solve_runs`` (runs padded to a group size, NOOP steps,
@@ -28,14 +33,19 @@ rules and have no counterpart here.
 
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/solve_mega.py``
 (``mega_solve_chunks`` / ``_kernel`` / ``onehot_gather_right``); the source
-is ``csrc/mega_solve.cu``.  Bound by bytes (every factor tile the stream
-names is read once for 2·nb²·nrhs operations) and, near the root, by the
-chain of dependent runs.  One persistent cooperative launch per direction
-loops over the runs; whichever block is free takes a run's next work item
-from a counter (ADDG/MM/MMT: one destination segment, summed before one
-read-modify-write of the window; SOL/SOLT: one tile, through the body of
-the batched left solve, result written to the panel window and its xp slot)
-and a grid barrier at each run boundary orders the runs.
+is ``csrc/mega_solve.cu``.  Its bytes bound (every factor tile the stream
+names read once for 2·nb²·nrhs operations) is far below what a sweep takes:
+a sweep is a chain of a few hundred dependent runs, most with fewer work
+items than the card has blocks, so each run costs a grid barrier plus the
+latency of its slowest item.  One persistent cooperative launch per
+direction loops over the runs; whichever block is free takes a run's next
+work item from a counter (ADDG: one destination segment; MM/MMT: one
+segment and band of up to 128 destination rows, the tile streamed through a
+ring of ``cp.async`` panel slots into register-tiled sums; SOL/SOLT: one
+tile, its first kv columns staged at once and solved in panels of 32
+columns, the result written to the panel window and its xp slot), and a
+grid barrier at each run boundary orders the runs.  The SOL body is the
+kernel's own; the batched left solve keeps ``csrc/solve_body.cuh``.
 """
 
 from __future__ import annotations
@@ -53,18 +63,24 @@ from .hopper_solve import left_solve_plain
 from .megakernel import segment_offsets, tables_to_device
 from .spmv import spmv
 
-__all__ = ["solve_stream", "stream_to_device", "mega_solve",
-           "mega_solve_plain", "MegaSolveExecutor"]
+__all__ = ["solve_stream", "stream_to_device", "work_items", "mega_solve",
+           "mega_solve_plain", "edge_case_runs", "MegaSolveExecutor"]
 
 _TASK_KEYS = ("wA", "wS", "dst", "aux")
-_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "seg_ptr",
+_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "run_split",
+             "seg_ptr",
              "wA", "wS", "dst", "aux", "rel")
 _ADD_KINDS = (KIND_ADDG, KIND_MM, KIND_MMT)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_mega_solve_{s}":
-        [_P] * 13 + [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _P]
+        [_P] * 14 + [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _P]
         for s in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# The kernel's work items, mirrored here (csrc/mega_solve.cu): rhs chunks
+# of up to CHUNK columns, MM/MMT destination bands of up to BAND rows, and
+# the blocks a launch typically has (two an SM of an H100), below which a
+# run's items are cut finer (run_split).
+CHUNK, BAND, BLOCKS = 64, 128, 264
 
 
 def solve_stream(runs, nb: int, pool_rows: int, work_rows: int) -> dict:
@@ -74,7 +90,7 @@ def solve_stream(runs, nb: int, pool_rows: int, work_rows: int) -> dict:
     when a table breaks what the kernel relies on: windows inside the pool
     and the work array, work windows nb-aligned, ``dst`` sorted inside an
     ADDG/MM/MMT run, map entries in [-1, nb), ``aux`` in [0, nb]."""
-    run_ptr, run_kind, run_seg, run_rel = [0], [], [0], []
+    run_ptr, run_kind, run_seg, run_rel, run_split = [0], [], [0], [], []
     seg_ptr, rel_all = [], []
     cols = {k: [] for k in _TASK_KEYS}
     ntask = nrel = nsegent = 0
@@ -116,6 +132,11 @@ def solve_stream(runs, nb: int, pool_rows: int, work_rows: int) -> dict:
         run_ptr.append(ntask)
         run_kind.append(kind)
         run_seg.append(nsegent)
+        # MM/MMT: one item a destination segment; SOL/SOLT: one a tile
+        items = (len(seg) - 1 if kind in (KIND_MM, KIND_MMT)
+                 else k if kind in (KIND_SOL, KIND_SOLT) else BLOCKS)
+        run_split.append(4 if 4 * items <= BLOCKS
+                         else 2 if 2 * items <= BLOCKS else 1)
 
     def cat(parts, shape=(0,)):
         return (np.concatenate(parts) if parts
@@ -126,9 +147,104 @@ def solve_stream(runs, nb: int, pool_rows: int, work_rows: int) -> dict:
                run_kind=np.asarray(run_kind, np.int32),
                run_seg=np.asarray(run_seg, np.int32),
                run_rel=np.asarray(run_rel, np.int32),
+               run_split=np.asarray(run_split, np.int32),
                seg_ptr=cat(seg_ptr), rel=cat(rel_all, (0, nb)), nb=nb,
                pool_rows=pool_rows, work_rows=work_rows)
     return out
+
+
+def work_items(stream: dict, nrhs: int, itemsize: int = 4) -> list:
+    """The work items of each run as the kernel forms them at ``nrhs``
+    columns of ``itemsize``-byte values: per run a list of (first, count,
+    c0, rc, row0, nrow) - ``count`` consecutive destination segments of
+    the run from the ``first`` (ADDG: as many as fill at most half a block
+    of 256 threads in 16-byte vectors, or in elements where the rows do not
+    line up; MM/MMT: one) or one tile (SOL/SOLT: ``first`` is its task
+    offset in the run), rhs columns [c0, c0 + rc) and destination rows
+    [row0, row0 + nrow) of the nb-row windows."""
+    h = stream["host"]
+    nb = stream["nb"]
+    split = stream["run_split"]
+    split = (split.cpu().numpy() if isinstance(split, torch.Tensor)
+             else np.asarray(split))
+    vec = 16 // itemsize
+    zcap = min(CHUNK, nrhs)
+    per = nb * (zcap // vec if nrhs * itemsize % 16 == 0 else zcap)
+    group = max(1, 256 // per)
+    out = []
+    for r, kind in enumerate(h["run_kind"]):
+        items = []
+        nseg = max(int(h["run_seg"][r + 1]) - int(h["run_seg"][r]) - 1, 0)
+        if kind in (KIND_SOL, KIND_SOLT):
+            cw = max(16, CHUNK // int(split[r]))
+            for t in range(int(h["run_ptr"][r + 1]) - int(h["run_ptr"][r])):
+                for c0 in range(0, nrhs, cw):
+                    items.append((t, 1, c0, min(cw, nrhs - c0), 0, nb))
+        elif kind == KIND_ADDG:
+            for g0 in range(0, nseg, group):
+                for c0 in range(0, nrhs, CHUNK):
+                    items.append((g0, min(group, nseg - g0), c0,
+                                  min(CHUNK, nrhs - c0), 0, nb))
+        else:
+            band = BAND // int(split[r])
+            for seg in range(nseg):
+                for c0 in range(0, nrhs, CHUNK):
+                    for b0 in range(0, nb, band):
+                        items.append((seg, 1, c0, min(CHUNK, nrhs - c0), b0,
+                                      min(band, nb - b0)))
+        out.append(items)
+    return out
+
+
+def edge_case_runs(nb: int, seed: int):
+    """A hand-made solve stream at tile size ``nb`` for the kernel's edge
+    checks: SOL and SOLT tiles with kv 0, 1, 31, 32, 33, 127, 128 and nb
+    (those <= nb: the edges of the 32-column panels of the blocked
+    substitution), ADDG and MM/MMT segments of 1 to 3 tasks and an
+    all-masked ADDG task, chained so that each run reads windows the run
+    before wrote.  Returns (runs, kvs, pool tiles, work rows); pool tiles
+    0..len(kvs)-1 are to hold factored diagonal tiles with those kv (lower
+    triangle of the first kv columns, zero beyond), the others any
+    values."""
+    rng = np.random.default_rng(seed)
+    kvs = sorted({kv for kv in (0, 1, 31, 32, 33, 127, 128, nb) if kv <= nb})
+    k = len(kvs)
+    extra = 3 * k                 # windows extra .. extra + 7: scratch
+
+    def win(*ids):
+        return np.asarray(ids, np.int64) * nb
+
+    def zero(n, width=None):
+        return np.zeros(n if width is None else (n, width),
+                        np.int64 if width is None else np.int32)
+
+    rel = rng.integers(-1, nb, size=(4, nb)).astype(np.int32)
+    rel[1, :] = -1                                   # an all-masked task
+    runs = [
+        # ADDG: segments of 1 and 3 tasks into SOL's first two sources
+        dict(kind=KIND_ADDG, wA=zero(4),
+             wS=win(extra, extra + 1, extra + 2, extra + 3),
+             dst=win(0, 1, 1, 1), aux=zero(4), rel=rel),
+        # MM: segments of 1, 2 and 3 tasks into SOL's sources
+        dict(kind=KIND_MM, wA=win(*range(k, k + 6)),
+             wS=win(*[extra + 4 + i % 4 for i in range(6)]),
+             dst=win(0, 2, 2, k - 1, k - 1, k - 1), aux=zero(6),
+             rel=zero(6, nb)),
+        # SOL: tile i solves window i, its result also goes to window k + i
+        dict(kind=KIND_SOL, wA=win(*range(k)), wS=win(*range(k)),
+             dst=win(*range(k, 2 * k)), aux=np.asarray(kvs, np.int64),
+             rel=zero(k, nb)),
+        # SOLT: on SOL's results, into windows 2k + i
+        dict(kind=KIND_SOLT, wA=win(*range(k)), wS=win(*range(k, 2 * k)),
+             dst=win(*range(2 * k, 3 * k)), aux=np.asarray(kvs, np.int64),
+             rel=zero(k, nb)),
+        # MMT: from SOLT's results into the scratch windows
+        dict(kind=KIND_MMT, wA=win(*range(k + 5, k - 1, -1)),
+             wS=win(*[2 * k + i % k for i in range(6)]),
+             dst=win(extra, extra, extra + 5, extra + 5, extra + 5,
+                     extra + 7), aux=zero(6), rel=zero(6, nb)),
+    ]
+    return runs, kvs, k + 6, (extra + 8) * nb
 
 
 def stream_to_device(stream: dict, device) -> dict:

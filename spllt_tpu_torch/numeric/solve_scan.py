@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .factor_scan import canonical_device
+from .factor_scan import canonical_device, pinned_precision
 from .hopper_solve import left_solve
 from .spmv import spmv
 
@@ -118,18 +118,20 @@ class ScanSolveExecutor:
                      u.reshape(-1, u.shape[-1])[t["out_sel"]], alpha=-1)
 
     def _run(self, pool, x, forward: bool):
-        """One sweep, in place on x [n+1, nrhs]."""
-        for lv in (self._fwd_levels if forward else self._bwd_levels):
-            if forward:
-                if "sol" in lv:
-                    self._sol_op(pool, x, lv["sol"], True)
-                if "upd" in lv:
-                    self._upd_op(pool, x, lv["upd"], True)
-            else:
-                if "upd" in lv:
-                    self._upd_op(pool, x, lv["upd"], False)
-                if "sol" in lv:
-                    self._sol_op(pool, x, lv["sol"], False)
+        """One sweep, in place on x [n+1, nrhs]; the products run with
+        the precision ``matmul_precision`` pins (:func:`pinned_precision`)."""
+        with pinned_precision(self.precision):
+            for lv in (self._fwd_levels if forward else self._bwd_levels):
+                if forward:
+                    if "sol" in lv:
+                        self._sol_op(pool, x, lv["sol"], True)
+                    if "upd" in lv:
+                        self._upd_op(pool, x, lv["upd"], True)
+                else:
+                    if "upd" in lv:
+                        self._upd_op(pool, x, lv["upd"], False)
+                    if "sol" in lv:
+                        self._sol_op(pool, x, lv["sol"], False)
         return x
 
     def _rhs(self, x):

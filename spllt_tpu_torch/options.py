@@ -7,9 +7,14 @@ switches of the reference (RUNTIME, ...) become runtime fields here — the
 reference's STF build) or 'batched' (level-scheduled device program,
 replacing OMP/StarPU/PaRSEC).
 
-Field names and defaults follow ``spllt_tpu.options.Options`` so one set of
-keyword arguments configures either package; fields that only steer the
-JAX package's kernels are absent, and ``device`` is new.
+Every field of ``spllt_tpu.options.Options`` is here, with the same name,
+default and validation, so one set of keyword arguments configures either
+package; ``device`` is new.  The knobs that steer only the JAX package's
+TPU kernels (``pallas_updates``, ``pallas_hmax``, ``solve_group``) are
+accepted and have no effect on this card.  The options of parts not ported
+yet (``trace``, ``timers``, non-default ``coarse_span`` / ``coarse_waste``,
+``coarse_subtrees``, ``ndevices`` > 1) are accepted here and raise
+``NotImplementedError`` in ``factor``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ class Options:
     prune_tree: bool = True  # subtree coarsening (ref prune_tree)
     coarse_subtrees: bool = False  # batched dense leaf-subtree phase
     #   (not ported yet: True raises NotImplementedError in factor)
+    coarse_span: int = 256   # max dense front size |V|+|B| (with
+    coarse_waste: float = 8.0  # the dense/sparse flop waste bound: not
+    #   ported yet, a non-default value raises NotImplementedError in factor)
     # execution -------------------------------------------------------------
     mode: str = "batched"    # 'batched' (level schedule on ``device``) |
     #   'stf' (float64 NumPy oracle on the host)
@@ -42,8 +50,20 @@ class Options:
     precision: str = "highest"  # accepted: 'highest' | 'high' | 'default';
     #   all three compute in IEEE arithmetic of the pool dtype for now
     dtype: str = "float32"   # pool dtype: 'float32' | 'float64'
+    pallas_updates: str = "auto"  # 'auto' | 'on' | 'off': the JAX
+    #   package's fused TPU update kernel; no effect here (the update kernel
+    #   always runs)
+    pallas_hmax: int = 2048   # its VMEM row budget; no effect here
     refine: int = 2          # iterative-refinement steps in solve (f64 resid)
+    refine_device: bool = True  # refine on the pool's device (float64 ELL
+    #   SpMV residuals); False computes the residuals on the host
     ndevices: int = 1        # target device count (> 1 not ported yet)
+    solve_group: int | None = None  # the TPU solve kernel's micro-tasks per
+    #   grid step; no effect here (the solve stream kernel has no grid steps)
+    # diagnostics -----------------------------------------------------------
+    trace: bool = False      # event tracing (not ported yet: True raises
+    #   NotImplementedError in factor)
+    timers: bool = False     # step timers (not ported yet, likewise)
     device: str | None = None  # torch device of the pool and executors;
     #   None means "cuda".  factor raises RuntimeError when a CUDA device is
     #   asked for and none is available: it never carries on on the CPU.
@@ -61,8 +81,17 @@ class Options:
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
+        if self.pallas_updates not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown pallas_updates {self.pallas_updates!r}")
+        if self.pallas_hmax < 8:
+            raise ValueError(f"pallas_hmax must be >= 8, "
+                             f"got {self.pallas_hmax}")
         if self.ndevices < 1:
             raise ValueError(f"ndevices must be >= 1, got {self.ndevices}")
+        if self.solve_group is not None and self.solve_group < 1:
+            raise ValueError(
+                f"solve_group must be >= 1, got {self.solve_group}")
         if self.device is not None:
             if not isinstance(self.device, str) or \
                     self.device.split(":")[0] not in ("cpu", "cuda"):

@@ -184,8 +184,14 @@ def test_default_device_never_falls_back_to_cpu():
 
 @pytest.mark.parametrize("kw", [dict(schedule="mega", ndevices=2),
                                 dict(ndevices=2),
-                                dict(coarse_subtrees=True)],
-                         ids=["mega", "ndevices", "coarse_subtrees"])
+                                dict(coarse_subtrees=True),
+                                dict(coarse_span=128),
+                                dict(coarse_waste=2.0),
+                                dict(trace=True),
+                                dict(timers=True)],
+                         ids=["mega", "ndevices", "coarse_subtrees",
+                              "coarse_span", "coarse_waste", "trace",
+                              "timers"])
 def test_not_ported_options_raise(kw):
     """schedule='mega' itself is ported; across devices it is not, like
     the level path."""
@@ -195,6 +201,33 @@ def test_not_ported_options_raise(kw):
     num = st.factor(symb, options=st.Options(nb=8, device="cpu",
                                              schedule="mega"))
     assert isinstance(num.pool, torch.Tensor)
+
+
+def test_options_take_every_reference_field():
+    """Every field of spllt_tpu.Options constructs in the port with the
+    same default, the values the reference refuses are refused, and the
+    TPU-only knobs change nothing."""
+    ref = {f.name: f for f in dataclasses.fields(sj.Options)}
+    got = {f.name: f for f in dataclasses.fields(st.Options)}
+    assert set(ref) <= set(got)
+    assert set(got) - set(ref) == {"device"}
+    dj, dt = sj.Options(), st.Options()
+    for name in ref:
+        assert getattr(dt, name) == getattr(dj, name), name
+        st.Options(**{name: getattr(dj, name)})
+    for kw in (dict(pallas_updates="x"), dict(pallas_hmax=4),
+               dict(solve_group=0), dict(nb=0), dict(precision="tf32")):
+        with pytest.raises(ValueError):
+            sj.Options(**kw)
+        with pytest.raises(ValueError):
+            st.Options(**kw)
+    a = st.poisson2d(6)
+    symb = st.analyse(a, st.Options(nb=8, device="cpu"))
+    base = st.factor(symb).pool
+    for kw in (dict(pallas_updates="off"), dict(pallas_hmax=8),
+               dict(solve_group=3)):
+        num = st.factor(symb, options=st.Options(nb=8, device="cpu", **kw))
+        assert torch.equal(num.pool, base), kw
 
 
 def test_unrolled_maps_to_level_executor():

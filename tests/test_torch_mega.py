@@ -166,7 +166,7 @@ def test_mega_factor_executor_f64_equals_oracle(host):
         ex(pool.float())
 
 
-@pytest.mark.parametrize("nrhs", [1, 3])
+@pytest.mark.parametrize("nrhs", [1, 3, 65])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 def test_mega_solve_executor_equals_oracle(host, dtype, nrhs):
@@ -267,6 +267,87 @@ def test_update_edge_case_tasks(nb):
         ref[d0:d0 + nb] -= r @ c.T
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("nrhs", [1, 3, 65])
+def test_solve_work_items_cover_each_output_once(host, nrhs):
+    """The kernel's work items (as work_items mirrors them, with the runs'
+    splits) cover every destination row and rhs column of every run exactly
+    once: ADDG groups of segments, MM/MMT segments x chunks x bands, SOL/SOLT
+    tiles x chunks; runs with few items are split, the others not."""
+    nb = host["nb"]
+    smp = bsmp_t(host["symb_t"], host["plan_t"])
+    rows = (host["plan_t"].nblocks + 1) * nb
+    for runs in (smp.fwd_runs, smp.bwd_runs):
+        stream = sm_t.solve_stream(runs, nb, rows, smp.P + smp.X)
+        dev = sm_t.stream_to_device(stream, "cpu")
+        for itemsize in (4, 8):
+            items = sm_t.work_items(dev, nrhs, itemsize)
+            for r, kind in enumerate(stream["run_kind"]):
+                nseg = stream["run_seg"][r + 1] - stream["run_seg"][r] - 1
+                n = (stream["run_ptr"][r + 1] - stream["run_ptr"][r]
+                     if kind >= sm_t.KIND_SOL else nseg)
+                split = stream["run_split"][r]
+                assert split == (4 if 4 * n <= sm_t.BLOCKS else 2
+                                 if 2 * n <= sm_t.BLOCKS else 1) or \
+                    kind == sm_t.KIND_ADDG
+                cover = np.zeros((n, nb, nrhs), np.int64)
+                for first, count, c0, rc, row0, nrow in items[r]:
+                    assert 0 < rc <= 64 and 0 < nrow <= 128
+                    cover[first:first + count, row0:row0 + nrow,
+                          c0:c0 + rc] += 1
+                assert (cover == 1).all(), (r, kind)
+
+
+def solve_stream_np(pool, work, runs, nb):
+    """The solve stream's semantics written out in NumPy (float64): the
+    oracle of the plain version on hand-made streams."""
+    work = work.copy()
+    for run in runs:
+        kind = run["kind"]
+        for t in range(len(run["dst"])):
+            src = work[run["wS"][t]:run["wS"][t] + nb]
+            d = slice(run["dst"][t], run["dst"][t] + nb)
+            blk = pool[run["wA"][t]:run["wA"][t] + nb]
+            if kind == sm_t.KIND_ADDG:
+                rel = run["rel"][t]
+                work[d] += np.where((rel >= 0)[:, None], src[rel], 0.0)
+            elif kind in (sm_t.KIND_MM, sm_t.KIND_MMT):
+                work[d] -= (blk.T if kind == sm_t.KIND_MMT else blk) @ src
+            else:
+                kv = run["aux"][t]
+                m = np.tril(blk) * (np.arange(nb) < kv)[None, :]
+                m[kv:, kv:] = np.eye(nb - kv)
+                y = np.linalg.solve(m.T if kind == sm_t.KIND_SOLT else m,
+                                    src)
+                work[run["wS"][t]:run["wS"][t] + nb] = y
+                work[d] = y
+    return work
+
+
+@pytest.mark.parametrize("nrhs", [1, 65])
+@pytest.mark.parametrize("nb", [16, 48])
+def test_solve_edge_case_runs(nb, nrhs):
+    """The hand-made solve streams of the card's edge checks (kv at the
+    edges of the 32-column substitution panels, segments of 1 to 3 tasks,
+    each run reading what the one before wrote) are valid tables, and the
+    plain version on them equals the NumPy oracle (float64, 1e-10)."""
+    runs, kvs, nblk, wrows = sm_t.edge_case_runs(nb, seed=nb)
+    assert kvs[0] == 0 and kvs[-1] == nb and (nb < 33 or 33 in kvs)
+    rng = np.random.default_rng(nb + nrhs)
+    pool = rng.standard_normal((nblk, nb, nb))
+    for i, kv in enumerate(kvs):         # factored diagonal tiles
+        pool[i] = np.tril(pool[i]) * (np.arange(nb) < kv)[None, :]
+        pool[i][np.arange(kv), np.arange(kv)] = 2.0 + rng.random(kv)
+    pool = pool.reshape(-1, nb)
+    work = rng.standard_normal((wrows, nrhs))
+    ref = solve_stream_np(pool, work, runs, nb)
+    stream = sm_t.stream_to_device(
+        sm_t.solve_stream(runs, nb, nblk * nb, wrows), "cpu")
+    got = sm_t.mega_solve(torch.as_tensor(pool), torch.as_tensor(work),
+                          stream)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-10 * np.abs(ref).max())
 
 
 # --------------------------------------------------------------------- #

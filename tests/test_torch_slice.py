@@ -118,6 +118,74 @@ def test_refined_solve_backward_error(case, nrhs):
                                atol=1e-11 * np.abs(ref).max())
 
 
+def test_refined_solve_on_host(case):
+    """Options(refine_device=False) computes the residuals on the host and
+    reaches the same solution as the device loop."""
+    num = case["num_t32"]
+    host = dataclasses.replace(num, options=dataclasses.replace(
+        num.options, refine_device=False))
+    b = rhs(case["at"], 3, seed=11)
+    x = st.solve(host, b)
+    assert bwd_err(case["at"], x, b) <= BWD_ERR
+    np.testing.assert_allclose(x, st.solve(num, b), rtol=0,
+                               atol=1e-11 * np.abs(x).max())
+
+
+def test_pinned_precision_restores_the_global_setting():
+    """The level executors pin IEEE float32 products for the block and put
+    the process-wide cuBLAS TF32 flag back afterwards, also on error."""
+    from spllt_tpu_torch.numeric.factor_scan import pinned_precision
+
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    try:
+        mm.allow_tf32 = True
+        for p in ("highest", "high", "default"):
+            with pinned_precision(p):
+                assert not mm.allow_tf32
+            assert mm.allow_tf32
+        with pytest.raises(KeyError):
+            with pinned_precision("highest"):
+                raise KeyError("inside")
+        assert mm.allow_tf32
+        with pytest.raises(ValueError):
+            with pinned_precision("tf32"):
+                pass
+        # both executors run under it and leave the flag as it was
+        a = st.poisson2d(6)
+        num = st.factor(st.analyse(a, st.Options(nb=8, device="cpu")))
+        st.solve(num, np.ones(a.n), refine=0)
+        assert mm.allow_tf32
+    finally:
+        mm.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_cuda_scan_factor_ignores_global_tf32():
+    """With TF32 switched on for the whole process, the level executor's
+    float32 factor of poisson3d(32) under precision='highest' matches the
+    one computed with TF32 off to 1e-5 of its largest entry (TF32 products
+    would be off by about 1e-3), and the global flag is left on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no "
+                    "interpret mode")
+    a = st.poisson3d(32)
+    symb = st.analyse(a, st.Options(ordering="nd-grid",
+                                    grid_shape=(32, 32, 32), nb=128,
+                                    nemin=192))
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    try:
+        mm.allow_tf32 = False
+        ref = st.factor(symb).pool
+        mm.allow_tf32 = True
+        got = st.factor(symb).pool
+        assert mm.allow_tf32
+    finally:
+        mm.allow_tf32 = prev
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
 def test_refactorize_reuses_cached_plans_and_executors(case):
     symb, a = case["symb_t"], case["at"]
     num = case["num_t32"]
