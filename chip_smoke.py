@@ -7,6 +7,9 @@
     python3 chip_smoke.py --solve-only    # only steps 3 and 5 for the solve
                                           # stream kernel (add --no-run-times
                                           # to time another tree's kernel)
+    python3 chip_smoke.py --factor-only   # only steps 3 and 5 for the factor
+                                          # stream kernel, with its item
+                                          # latencies
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -28,10 +31,13 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
      run with 1, 3 and all blocks (the solve stream's at nrhs 1 to 128 with
      tiles whose kv sits at the edges of its 32-column panels, nb 48, 128
-     and 256, float32 and float64); and times them there (CUDA events,
-     after a warm-up), the stream kernels also run by run
-     (``stream_run_times``, ``solve_run_times``: by kind and over the runs
-     with fewer work items than blocks);
+     and 256, float32 and float64; the factor stream's POTRF and TRSM runs
+     at kv 0, 1, 31, 32, 33, 127 and nb, nb 8, 48, 128 and 256, narrow and
+     wide, and a failed pivot); and times them there (CUDA events, after a
+     warm-up), the stream kernels also run by run (``stream_run_times``,
+     ``solve_run_times``: by kind, and over the runs with fewer work items
+     than blocks and the others, each kind beside its bound) and the factor
+     stream's single items and grid barrier (``factor_item_times``);
   5. repeats both main paths at poisson3d(64) (unless ``--no-large``),
      holding the update kernel against its plain version at every level,
      the factor stream kernel against its plain version and the level
@@ -766,9 +772,12 @@ def factor_stream_work(stream: dict, nb: int, esz: int):
     destination tile once and the tables, and writes each destination tile
     once; POTRF reads the lower trapezoid of its columns < kv and writes a
     tile; TRSM reads the kv x kv triangle of L and the columns < kv of dst
-    and writes a tile."""
+    and writes a tile.  Work items as the kernel forms them: UPD destination
+    segments, POTRF tiles, TRSM bands of 64 / split dst rows of a pair
+    (``run_split``; a stream without that table is unsplit)."""
     h = stream["host"]
     aux = stream["aux"].cpu().numpy().astype(np.int64)
+    split = h.get("run_split", np.ones(len(h["run_kind"]), np.int64))
     out = []
     for r, kind in enumerate(h["run_kind"]):
         t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
@@ -779,7 +788,9 @@ def factor_stream_work(stream: dict, nb: int, esz: int):
         elif kind == 1:
             out.append((1, t1 - t0, *potrf_work(kvs, nb, esz)))
         else:
-            out.append((2, t1 - t0, *trsm_work(kvs, nb, esz)))
+            rows = 64 // int(split[r])
+            out.append((2, (t1 - t0) * -(-nb // rows),
+                        *trsm_work(kvs, nb, esz)))
     return out
 
 
@@ -824,42 +835,118 @@ def add_bound(acc: Acc, work) -> None:
         acc.bound(nbytes, flops)
 
 
+FACTOR_KINDS = ("upd", "potrf", "trsm")   # by run kind 0..2
+
+
 def factor_run_times(fex, pool0: torch.Tensor, work) -> dict:
     """Time of each run of the factor stream, as the difference of the times
     of the stream cut after that run and after the one before (one call
-    each, on a fresh copy of the assembled pool), summed by kind and over
-    the runs that have fewer work items than the kernel has blocks."""
+    each, on a fresh copy of the assembled pool), summed by kind and, per
+    kind, over the runs that have fewer work items than the kernel has
+    blocks ("narrow") and the others, each kind beside its bound."""
     from spllt_tpu_torch.numeric.megakernel import mega_factorize
 
-    stream = fex.stream
     buf = torch.empty_like(pool0)
-    prev, by_kind, narrow_ms, narrow_runs = 0.0, [0.0, 0.0, 0.0], 0.0, 0
-    nruns = len(work)
-    for r in range(1, nruns + 1):
-        cut = dict(stream, run_kind=stream["run_kind"][:r])
-        t = time_prepared_ms(lambda: buf.copy_(pool0),
-                             lambda: mega_factorize(buf.view(-1, fex.nb),
-                                                    cut), 1)
-        grid = mega_factorize.last_grid
+    stream = fex.stream
+    times = [time_prepared_ms(
+        lambda: buf.copy_(pool0),
+        lambda: mega_factorize(buf.view(-1, fex.nb),
+                               dict(stream, run_kind=stream["run_kind"][:r])),
+        1) for r in range(1, len(work) + 1)]
+    grid = mega_factorize.last_grid
+    kinds = {k: dict(runs=0, ms=0.0, narrow_runs=0, narrow_ms=0.0,
+                     wide_ms=0.0, acc=Acc()) for k in FACTOR_KINDS}
+    prev, narrow_ms, narrow_runs = 0.0, 0.0, 0
+    for t, (kind, items, nbytes, flops) in zip(times, work):
         dt = max(t - prev, 0.0)
         prev = t
-        kind, items = work[r - 1][0], work[r - 1][1]
-        by_kind[kind] += dt
+        k = kinds[FACTOR_KINDS[kind]]
+        k["runs"] += 1
+        k["ms"] += dt
+        k["acc"].bound(nbytes, flops)
         if items < grid:
+            k["narrow_runs"] += 1
+            k["narrow_ms"] += dt
             narrow_ms += dt
             narrow_runs += 1
-    return dict(runs=nruns, blocks=grid, whole_ms=prev,
-                upd_ms=by_kind[0], potrf_ms=by_kind[1], trsm_ms=by_kind[2],
+        else:
+            k["wide_ms"] += dt
+    for k in kinds.values():
+        acc = k.pop("acc")
+        k["bound_ms"] = (acc.tb + acc.to) * 1e3
+        k["bound_by"] = "bytes" if acc.tb >= acc.to else "operations"
+    return dict(runs=len(work), blocks=grid, whole_ms=prev,
+                upd_ms=kinds["upd"]["ms"], potrf_ms=kinds["potrf"]["ms"],
+                trsm_ms=kinds["trsm"]["ms"],
                 runs_with_fewer_items_than_blocks=narrow_runs,
-                ms_in_those_runs=narrow_ms)
+                ms_in_those_runs=narrow_ms, by_kind=kinds)
+
+
+def factor_item_times(dtype=torch.float32, nb: int = 128,
+                      nruns: int = 64) -> dict:
+    """Latency of one work item of the factor stream kernel, from hand-made
+    streams of ``nruns`` runs of one task each (each on its own tile), less
+    the time of as many empty runs: one POTRF tile at kv 32, 64 and nb; one
+    TRSM pair at kv = nb as the run forms its items (all blocks), and one
+    TRSM item of 64 rows (one block, the run unsplit).  The grid barrier per
+    run is the slope of the time of empty runs (1 and 1 + ``nruns`` runs).
+    Microseconds; CUDA events, a fresh copy of the pool before each call."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+    from spllt_tpu_torch.numeric.hopper_potrf import potrf_plain
+
+    rng = np.random.default_rng(SEED + 7)
+    rows_ = (2 * nruns + 1) * nb
+    pool0 = torch.zeros((rows_ // nb, nb, nb), dtype=dtype, device="cuda")
+    buf = torch.empty_like(pool0)
+    tile = lambda i: np.asarray([i * nb], np.int64)
+    one = lambda kind, d, t, kv: (kind, {
+        "wr": tile(d), "wc": tile(t), "dst": tile(t),
+        "aux": np.asarray([kv], np.int64), "srcn": np.zeros(1, np.int64)},
+        None, None)
+    empty = (mk.KIND_POTRF, {k: np.empty(0, np.int64) for k in
+                             ("wr", "wc", "dst", "aux", "srcn")}, None, None)
+
+    def run_us(runs, max_blocks=0, unsplit=False):
+        s = mk.stream_to_device(mk.assemble_stream(runs, nb, rows_), "cuda")
+        if unsplit and "run_split" in s:
+            s["run_split"] = torch.ones_like(s["run_split"])
+        return 1e3 * time_prepared_ms(
+            lambda: buf.copy_(pool0),
+            lambda: mk.mega_factorize(buf.view(-1, nb), s,
+                                      max_blocks=max_blocks), 3)
+
+    out = {}
+    for mb, tag in ((0, "all_blocks"), (1, "one_block")):
+        e1, en = run_us([empty], mb), run_us([empty] * (nruns + 1), mb)
+        out[f"barrier_per_run_us_{tag}"] = (en - e1) / nruns
+        out[f"empty_runs_us_{tag}"] = en
+    empty_all = out["empty_runs_us_all_blocks"]
+    for kv in sorted({min(k, nb) for k in (32, 64, nb)}):
+        pool0[:nruns] = spd_tiles(rng, [kv] * nruns, nb, dtype)
+        t = run_us([one(mk.KIND_POTRF, i, i, kv) for i in range(nruns)]
+                   + [empty])
+        out[f"potrf_item_us_kv{kv}"] = (t - empty_all) / nruns
+    kv_t = torch.full((nruns,), nb, dtype=torch.int32, device="cuda")
+    pool0[:nruns] = potrf_plain(spd_tiles(rng, [nb] * nruns, nb, dtype),
+                                kv_t)
+    pool0[nruns:2 * nruns] = torch.as_tensor(
+        rng.standard_normal((nruns, nb, nb)), dtype=dtype, device="cuda")
+    pairs = [one(mk.KIND_TRSM, i, nruns + i, nb) for i in range(nruns)]
+    t = run_us(pairs + [empty])
+    out[f"trsm_pair_run_us_kv{nb}"] = (t - empty_all) / nruns
+    t = run_us(pairs + [empty], 1, unsplit=True)
+    out[f"trsm_item_us_kv{nb}_rows64"] = \
+        (t - out["empty_runs_us_one_block"]) / (nruns * -(-nb // 64))
+    out["blocks"] = mk.mega_factorize.last_grid
+    return dict(dtype=str(dtype)[6:], nb=nb, runs=nruns, **out)
 
 
 def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
     """The factor stream kernel on the assembled pool of ``num``: against
     its plain version and against the level executor's factor ``scan_pool``
-    (each within ``tol`` of max|ref|: other summation order, sqrt/division),
-    and bit for bit against the factor the main path computed.  Returns
-    (assembled pool, the kernel's factor, errors)."""
+    unless that is None (each within ``tol`` of max|ref|: other summation
+    order, sqrt/division), and bit for bit against the factor the main path
+    computed.  Returns (assembled pool, the kernel's factor, errors)."""
     from spllt_tpu_torch.numeric import megakernel
     from spllt_tpu_torch.numeric.assemble import assemble_torch
 
@@ -868,6 +955,10 @@ def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
                            num.pool.device)
     got = pool0.clone()
     megakernel.mega_factorize(got.view(-1, nb), fex.stream)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    require(megakernel.mega_factorize.last_grid == 2 * sms,
+            f"mega_factor ran {megakernel.mega_factorize.last_grid} blocks, "
+            f"not two on each of the {sms} SMs")
     ref = pool0.clone()
     megakernel.mega_factorize_plain(ref.view(-1, nb), fex.stream)
     torch.cuda.synchronize()
@@ -875,15 +966,17 @@ def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
     require(rel <= tol, f"mega_factor: kernel differs from the plain "
                         f"version: rel {rel} > {tol}")
     del ref
-    vs_scan = rel_err(got, scan_pool)
-    require(vs_scan[1] <= tol, f"mega_factor: differs from the level "
-                               f"executor's factor: rel {vs_scan[1]}")
     require(rel_err(got, num.pool)[0] == 0.0,
             "mega_factor is not deterministic: the same stream on the same "
             "pool gave another factor")
-    return pool0, got, dict(max_abs=mabs, rel=rel,
-                            vs_level_executor_rel=vs_scan[1],
-                            vs_level_executor_max_abs=vs_scan[0])
+    checks = dict(max_abs=mabs, rel=rel)
+    if scan_pool is not None:
+        vs_scan = rel_err(got, scan_pool)
+        require(vs_scan[1] <= tol, f"mega_factor: differs from the level "
+                                   f"executor's factor: rel {vs_scan[1]}")
+        checks.update(vs_level_executor_rel=vs_scan[1],
+                      vs_level_executor_max_abs=vs_scan[0])
+    return pool0, got, checks
 
 
 def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
@@ -1057,6 +1150,105 @@ def solve_run_times(num, sex, nrhs_list=(4, 64)) -> dict:
     return out
 
 
+EDGE_TOLS = {torch.float32: 1e-5, torch.float64: 1e-11}
+
+
+def edge_check(out, tag, run_kernel, run_plain, dtype, base=None):
+    """run_kernel(max_blocks) / run_plain() each return a new tensor;
+    ``base`` as for :func:`rel_err`.  The kernel with 1, 3 and all blocks
+    must equal the plain version within ``EDGE_TOLS`` and the run with all
+    blocks bit for bit; the errors go to ``out``.  Returns the kernel's
+    result with all blocks."""
+    ref = run_plain()
+    full = run_kernel(0)
+    for mb in (1, 3, 0):
+        got = run_kernel(mb)
+        torch.cuda.synchronize()
+        mabs, rel = rel_err(got, ref, base)
+        require(rel <= EDGE_TOLS[dtype], f"edge stream {tag}, max_blocks="
+                                         f"{mb}: rel err {rel}")
+        same = torch.equal(torch.nan_to_num(got), torch.nan_to_num(full))
+        require(same, f"edge stream {tag}: {mb} blocks and all blocks "
+                      f"gave different results")
+        out[f"{tag}_blocks{mb or 'all'}"] = {"max_abs": mabs, "rel": rel}
+    return full
+
+
+def factor_edge_streams(out, rng, wide: int = 300) -> None:
+    """The POTRF and TRSM items of the factor stream kernel on hand-made
+    streams, nb 8, 48, 128 and 256, float32 and float64, kv 0, 1, 31, 32,
+    33, 127 and nb (those <= nb): a narrow run of one tile, a narrow run of
+    one tile at each kv, a narrow TRSM run of two pairs per tile, a TRSM run
+    of one pair, and a wide POTRF and a wide TRSM run of ``wide`` tiles and
+    pairs (more items than blocks); then a one-tile run whose pivot fails at
+    column min(40, nb - 1), which must leave the whole tile NaN.  Each
+    through :func:`edge_check` (1, 3 and all blocks)."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    for nb in (8, 48, 128, 256):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"items_nb{nb}_{str(dtype)[-7:]}"
+            kvs = sorted({min(k, nb) for k in (0, 1, 31, 32, 33, 127, nb)},
+                         reverse=True)
+            k = len(kvs)
+            wkv = [kvs[i % k] for i in range(wide)]
+            wkv.sort(reverse=True)       # the plan's order: longest first
+            a, b, c = 1, 1 + k, 1 + 3 * k          # first tile of each part
+            e, f = c + 1, c + 1 + wide
+            ntile = f + wide
+            pool0 = torch.zeros((ntile, nb, nb), dtype=dtype, device="cuda")
+            pool0[0:1] = spd_tiles(rng, [nb], nb, dtype)
+            pool0[a:b] = spd_tiles(rng, kvs, nb, dtype)
+            pool0[e:f] = spd_tiles(rng, wkv, nb, dtype)
+            for lo, hi in ((b, c + 1), (f, ntile)):
+                pool0[lo:hi] = torch.as_tensor(
+                    rng.standard_normal((hi - lo, nb, nb)), dtype=dtype,
+                    device="cuda")
+            t = lambda ids: np.asarray(ids, np.int64) * nb
+            z = lambda n: np.zeros(n, np.int64)
+            potrf = lambda ids, kv: (mk.KIND_POTRF, {
+                "wr": t(ids), "wc": t(ids), "dst": t(ids),
+                "aux": np.asarray(kv, np.int64), "srcn": z(len(ids))},
+                None, None)
+            trsm = lambda dg, ds, kv: (mk.KIND_TRSM, {
+                "wr": t(dg), "wc": t(ds), "dst": t(ds),
+                "aux": np.asarray(kv, np.int64), "srcn": z(len(ds))},
+                None, None)
+            pairs = [a + i // 2 for i in range(2 * k)]
+            stream = mk.stream_to_device(mk.assemble_stream([
+                potrf([0], [nb]),
+                potrf(list(range(a, b)), kvs),
+                trsm(pairs, list(range(b, c)), [kvs[p - a] for p in pairs]),
+                trsm([0], [c], [nb]),
+                potrf(list(range(e, f)), wkv),
+                trsm(list(range(e, f)), list(range(f, ntile)), wkv),
+            ], nb, ntile * nb), "cuda")
+            edge_check(out, f"factor_{tag}",
+                       lambda mb: mk.mega_factorize(
+                           pool0.clone().view(-1, nb), stream, max_blocks=mb),
+                       lambda: mk.mega_factorize_plain(
+                           pool0.clone().view(-1, nb), stream), dtype)
+            # a failed pivot in a one-tile run: the whole tile NaN
+            bad = pool0[:2].clone()
+            col = min(40, nb - 1)
+            bad[0, col, col] = -1.0
+            stream = mk.stream_to_device(mk.assemble_stream(
+                [potrf([0], [nb]), potrf([1], [kvs[1]])], nb, 2 * nb),
+                "cuda")
+            got = edge_check(out, f"factor_{tag}_failed_pivot",
+                             lambda mb: mk.mega_factorize(
+                                 bad.clone().view(-1, nb), stream,
+                                 max_blocks=mb),
+                             lambda: mk.mega_factorize_plain(
+                                 bad.clone().view(-1, nb), stream), dtype)
+            got = got.view(2, nb, nb)
+            require(bool(torch.isnan(got[0]).all())
+                    and not bool(torch.isnan(got[1]).any()),
+                    f"edge stream {tag}: a failed pivot did not leave its "
+                    f"tile, and only it, NaN")
+            del pool0, bad, got
+
+
 def edge_stream_phase():
     """The stream kernels on small and on hand-made streams with 1, 3 and
     all blocks: more items than blocks, fewer items than blocks, a
@@ -1074,24 +1266,9 @@ def edge_stream_phase():
     from spllt_tpu_torch.plan.solve_mega import build_solve_mega_plan
 
     rng = np.random.default_rng(SEED + 3)
-    tols = {torch.float32: 1e-5, torch.float64: 1e-11}
+    tols = EDGE_TOLS
     out = {}
-
-    def check(tag, run_kernel, run_plain, dtype, base=None):
-        """run_kernel(max_blocks) / run_plain() each return a new tensor;
-        ``base`` as for :func:`rel_err`."""
-        ref = run_plain()
-        full = run_kernel(0)
-        for mb in (1, 3, 0):
-            got = run_kernel(mb)
-            torch.cuda.synchronize()
-            mabs, rel = rel_err(got, ref, base)
-            require(rel <= tols[dtype], f"edge stream {tag}, max_blocks="
-                                        f"{mb}: rel err {rel}")
-            same = torch.equal(torch.nan_to_num(got), torch.nan_to_num(full))
-            require(same, f"edge stream {tag}: {mb} blocks and all blocks "
-                          f"gave different results")
-            out[f"{tag}_blocks{mb or 'all'}"] = {"max_abs": mabs, "rel": rel}
+    check = lambda *a, **k: edge_check(out, *a, **k)
 
     # ---- real small problems through both stream kernels ---- #
     for tag, a, kw, dtype in (
@@ -1229,6 +1406,8 @@ def edge_stream_phase():
                       lambda: sm.mega_solve_plain(poolf, w0.clone(), st_d),
                       dtype)
 
+    factor_edge_streams(out, rng)
+
     # ---- update tasks that stress the masks and skip rules: K4 and K3 ---- #
     for nb in (48, 128, 256):
         for dtype in (torch.float32, torch.float64):
@@ -1350,6 +1529,46 @@ def solve_only(card: str, large: bool, run_times: bool,
     return 0
 
 
+def factor_only(card: str, large: bool, t_start: float) -> int:
+    """``--factor-only``: the stream main path at poisson3d(32) and (64), K4
+    held against its plain version (and bit for bit against the main path's
+    factor) and timed there, its per-run times by kind, and the item
+    latencies of :func:`factor_item_times`.  Runs against any tree whose
+    package has the same factor stream executor (to compare two trees in one
+    call)."""
+    from spllt_tpu_torch.numeric.megakernel import mega_factorize
+
+    for m in (32, 64) if large else (32,):
+        rec, num, fex, sex = main_path(m, card, False, "mega")
+        emit("main_path", **rec)
+        pool0, buf, checks = mega_factor_check(num, fex, None)
+        ms = time_prepared_ms(
+            lambda: buf.copy_(pool0),
+            lambda: mega_factorize(buf.view(-1, fex.nb), fex.stream), 3)
+        work = factor_stream_work(fex.stream, fex.nb, 4)
+        acc = Acc()
+        add_bound(acc, work)
+        emit("stream_run_times", card=card, matrix=rec["matrix"],
+             mega_factor_ms=ms, factor_ms=rec["factor_ms"],
+             bound_ms=(acc.tb + acc.to) * 1e3,
+             bound_by="bytes" if acc.tb >= acc.to else "operations",
+             checks=checks, **factor_run_times(fex, pool0, work))
+        del num, fex, sex, pool0, buf
+        torch.cuda.empty_cache()
+    edges = {}
+    factor_edge_streams(edges, np.random.default_rng(SEED + 3))
+    emit("factor_edge_streams", card=card, streams=len(edges), worst_rel={
+        d: max(v["rel"] for k, v in edges.items() if d in k)
+        for d in ("float32", "float64")})
+    emit("factor_item_times", card=card, **factor_item_times())
+    emit("elapsed", seconds=time.perf_counter() - t_start)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1357,6 +1576,9 @@ def main() -> int:
                     help="skip the poisson3d(64) main-path runs")
     ap.add_argument("--solve-only", action="store_true",
                     help="only the stream main path and the solve stream "
+                         "kernel's checks and times (poisson3d 32 and 64)")
+    ap.add_argument("--factor-only", action="store_true",
+                    help="only the stream main path and the factor stream "
                          "kernel's checks and times (poisson3d 32 and 64)")
     ap.add_argument("--no-run-times", action="store_true",
                     help="with --solve-only: skip the per-run times (for a "
@@ -1383,6 +1605,8 @@ def main() -> int:
     if args.solve_only:
         return solve_only(card, not args.no_large, not args.no_run_times,
                           t_start)
+    if args.factor_only:
+        return factor_only(card, not args.no_large, t_start)
 
     # level path (schedule='scan') and its four kernels
     rec, num, fex, sex = main_path(32, card, True, "scan")
@@ -1407,12 +1631,16 @@ def main() -> int:
     rows, detail = mega_kernel_phase(num, fex, sex, scan_pool, rec["nrhs"],
                                      rec["launches"], run_times=True)
     kernels += rows
+    rt = detail["mega_factor"].pop("run_times")
     emit("stream_kernels", card=card, matrix=rec["matrix"], **detail)
+    emit("stream_run_times", card=card, matrix=rec["matrix"],
+         bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"], **rt)
+    emit("factor_item_times", card=card, **factor_item_times())
     emit("solve_run_times", card=card, matrix=rec["matrix"],
          **solve_run_times(num, sex))
     emit("update_rates", card=card, matrix=rec["matrix"],
-         kernel="mega_factor UPD runs", **update_rates(
-             rec["update_gflop"], detail["mega_factor"]["run_times"]["upd_ms"]))
+         kernel="mega_factor UPD runs",
+         **update_rates(rec["update_gflop"], rt["upd_ms"]))
     emit("stream_edge_cases", card=card, **edge_stream_phase())
     if args.profile:
         emit("profile", card=card, matrix=rec["matrix"], schedule="mega",

@@ -22,6 +22,9 @@ The stream is one set of flat int32 tables for the whole factorization:
   seg_ptr, run_seg [R+1]        UPD run r: seg_ptr[run_seg[r]:run_seg[r+1]]
                                 are the task offsets of its runs of equal
                                 dst (one more entry than segments)
+  run_split [R]                 TRSM run r: its work items are bands of
+                                ``TRSM_ROWS // run_split[r]`` dst rows of a
+                                pair (1, 2 or 4; see :func:`trsm_split`)
 
 What crosses over from ``spllt_tpu.numeric.megakernel.build_mega_stream``
 is the task order and the run boundaries (its ``drain`` steps).  Its step
@@ -33,12 +36,20 @@ Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/megakernel.py``
 (``mega_factorize`` / ``_kernel``); the source is ``csrc/mega_factor.cu``.
 Its bound is the sum of its bodies' bounds (bytes for the sparse update
 tasks and the leaf potrf tiles; dependent chains of potrf and trsm near the
-root) plus one grid barrier per run.  One persistent cooperative launch
-loops over the runs; inside a run whichever block is free takes the next
-work item from a counter (UPD: one destination segment, summed in registers, one
-read-modify-write; POTRF: one tile in place; TRSM: some rows of one pair in
-place) and a grid barrier at every run boundary orders the runs.  The
-elimination bodies are the ones of the batched kernels (``csrc/*_body.cuh``).
+root) plus one grid barrier per run.  One call launches the stream in parts
+(:func:`run_parts`: a level's UPD run, then its POTRF and TRSM runs), one
+persistent cooperative launch a part, each part in a kernel that holds only
+its own bodies, so that the update body keeps every register a float kernel
+may have.  A launch loops over its runs; inside a run whichever block is
+free takes the next work item from a counter (UPD: one destination segment,
+summed in registers, one read-modify-write; POTRF: one tile in place; TRSM:
+a band of rows of one pair in place) and a grid barrier at every run
+boundary orders the runs.  The update body is the batched update kernel's
+(``csrc/update_body.cuh``); POTRF and TRSM have bodies of their own
+(``csrc/mega_factor_body.cuh``: blocked in 16-column panels, one warp's
+registers for each diagonal block, one thread a row below), since near the
+root most of their runs have fewer items than the card has blocks and last
+as long as one item.
 """
 
 from __future__ import annotations
@@ -54,18 +65,24 @@ from .hopper_potrf import potrf_plain
 from .hopper_trsm import trsm_plain
 from .hopper_update import apply_updates_plain, build_micro_tasks
 
-__all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "build_mega_stream",
-           "stream_to_device", "mega_factorize", "mega_factorize_plain",
+__all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "TRSM_ROWS", "BLOCKS",
+           "build_mega_stream", "trsm_split", "trsm_work_items",
+           "run_parts", "stream_to_device", "mega_factorize", "mega_factorize_plain",
            "MegaFactorExecutor"]
 
 KIND_UPD, KIND_POTRF, KIND_TRSM = 0, 1, 2
+# dst rows of a TRSM work item in an unsplit run, and the block count the
+# split is sized for (two blocks on each of the H100's 132 SMs); neither
+# depends on the grid a launch gets, so neither does any result
+TRSM_ROWS, BLOCKS = 64, 264
 
 _TASK_KEYS = ("wr", "wc", "dst", "aux", "srcn")
-_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "seg_ptr",
-             "wr", "wc", "dst", "aux", "srcn", "relr", "relc")
+_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "run_split",
+             "seg_ptr", "wr", "wc", "dst", "aux", "srcn", "relr", "relc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_mega_factor_{s}":
-        [_P] * 14 + [_I, _I, _I, ctypes.POINTER(ctypes.c_int), _P]
+        [_P] * 15 + [_I, _I, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_int),
+                     _P]
         for s in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -133,12 +150,39 @@ def build_mega_stream(fp, pool_rows: int) -> dict:
     return assemble_stream(runs, nb, pool_rows)
 
 
+def trsm_split(npairs: int, nb: int) -> int:
+    """How finely a TRSM run of ``npairs`` pairs cuts each pair: 4, 2 or 1
+    (bands of 16, 32 or 64 dst rows), the most that keeps the run's items
+    within ``BLOCKS``, so that a run with few pairs spreads over more
+    blocks."""
+    items = npairs * -(-nb // TRSM_ROWS)
+    return 4 if 4 * items <= BLOCKS else 2 if 2 * items <= BLOCKS else 1
+
+
+def trsm_work_items(stream: dict) -> list:
+    """The TRSM work items of each run as the kernel forms them: per run a
+    list of (task offset in the run, first dst row, rows); empty for the
+    other kinds."""
+    h = stream["host"] if "host" in stream else stream
+    nb = stream["nb"]
+    out = []
+    for r, kind in enumerate(h["run_kind"]):
+        items = []
+        if kind == KIND_TRSM:
+            rows = TRSM_ROWS // int(h["run_split"][r])
+            for t in range(int(h["run_ptr"][r + 1]) - int(h["run_ptr"][r])):
+                for r0 in range(0, nb, rows):
+                    items.append((t, r0, min(rows, nb - r0)))
+        out.append(items)
+    return out
+
+
 def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
     """Concatenate runs ``(kind, {wr, wc, dst, aux, srcn}, relr, relc)``
     into the flat tables, checking what the kernel relies on: windows inside
     the pool, ``dst`` tile-aligned everywhere and sorted inside a UPD run,
     map entries in [-1, nb), ``aux`` and ``srcn`` in [0, nb]."""
-    run_ptr, run_kind, run_seg, run_rel = [0], [], [0], []
+    run_ptr, run_kind, run_seg, run_rel, run_split = [0], [], [0], [], []
     seg_ptr, relr_all, relc_all = [], [], []
     cols = {k: [] for k in _TASK_KEYS}
     ntask = nrel = nsegent = 0
@@ -177,6 +221,7 @@ def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
         run_ptr.append(ntask)
         run_kind.append(kind)
         run_seg.append(nsegent)
+        run_split.append(trsm_split(k, nb) if kind == KIND_TRSM else 1)
 
     def cat(parts, shape=(0,)):
         return (np.concatenate(parts) if parts
@@ -187,6 +232,7 @@ def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
                run_kind=np.asarray(run_kind, np.int32),
                run_seg=np.asarray(run_seg, np.int32),
                run_rel=np.asarray(run_rel, np.int32),
+               run_split=np.asarray(run_split, np.int32),
                seg_ptr=cat(seg_ptr), relr=cat(relr_all, (0, nb)),
                relc=cat(relc_all, (0, nb)), nb=nb, pool_rows=pool_rows)
     return out
@@ -199,16 +245,31 @@ def tables_to_device(stream: dict, dev_keys, meta_keys, device) -> dict:
     out = {k: torch.as_tensor(np.ascontiguousarray(stream[k], np.int32),
                               device=device) for k in dev_keys}
     out["host"] = {k: np.asarray(stream[k]) for k in
-                   ("run_ptr", "run_kind", "run_seg", "run_rel")}
+                   ("run_ptr", "run_kind", "run_seg", "run_rel",
+                    "run_split")}
     for k in meta_keys:
         out[k] = stream[k]
     return out
 
 
+def run_parts(run_kind) -> tuple:
+    """The stream's runs in parts of one kind each, UPD runs or POTRF and
+    TRSM runs, as the kernel launches them (one cooperative launch a part):
+    (part starts with the end appended, int32 [P + 1]; whether each part is
+    POTRF/TRSM, int32 [P])."""
+    fac = np.asarray(run_kind) != KIND_UPD
+    starts = np.flatnonzero(np.diff(fac.astype(np.int8), prepend=-1))
+    return (np.append(starts, len(fac)).astype(np.int32),
+            fac[starts].astype(np.int32))
+
+
 def stream_to_device(stream: dict, device) -> dict:
     """The factor stream's tables on ``device`` (see
-    :func:`tables_to_device`)."""
-    return tables_to_device(stream, _DEV_KEYS, ("nb", "pool_rows"), device)
+    :func:`tables_to_device`), with its parts (:func:`run_parts`) on the
+    host."""
+    out = tables_to_device(stream, _DEV_KEYS, ("nb", "pool_rows"), device)
+    out["parts"], out["part_fac"] = run_parts(stream["run_kind"])
+    return out
 
 
 def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
@@ -266,9 +327,11 @@ def mega_factorize(poolf: torch.Tensor, stream: dict,
     grid = ctypes.c_int(0)
     # one work-item counter per run, zero at launch
     counters = torch.zeros(nruns, dtype=torch.int32, device=poolf.device)
+    parts, part_fac = stream["parts"], stream["part_fac"]
     with torch.cuda.device(poolf.device):
         status = fn(poolf.data_ptr(), *(t.data_ptr() for t in tens),
-                    counters.data_ptr(), nruns, nb, int(max_blocks),
+                    counters.data_ptr(), nruns, nb, parts.ctypes.data,
+                    part_fac.ctypes.data, len(part_fac), int(max_blocks),
                     ctypes.byref(grid),
                     torch.cuda.current_stream().cuda_stream)
     check_launch(status, "mega_factorize")

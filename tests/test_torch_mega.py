@@ -299,6 +299,83 @@ def test_solve_work_items_cover_each_output_once(host, nrhs):
                 assert (cover == 1).all(), (r, kind)
 
 
+@pytest.mark.parametrize("split", [None, 1, 2, 4])
+def test_factor_trsm_items_cover_each_row_once(host, split):
+    """The factor stream kernel's TRSM work items (as trsm_work_items
+    mirrors them) cover every (pair, dst row) of every TRSM run exactly
+    once, at the split the stream chose (None: more bands of fewer rows
+    where a run has few pairs) and at each split forced on every run."""
+    nb, fp = host["nb"], host["fplan_t"]
+    stream = mk_t.build_mega_stream(fp, (fp.nblocks + 1) * nb)
+    kinds = stream["run_kind"]
+    npairs = np.diff(stream["run_ptr"])
+    assert (kinds == mk_t.KIND_TRSM).any()
+    for r, kind in enumerate(kinds):
+        want = (mk_t.trsm_split(int(npairs[r]), nb)
+                if kind == mk_t.KIND_TRSM else 1)
+        assert stream["run_split"][r] == want
+    if split is not None:
+        stream["run_split"] = np.where(kinds == mk_t.KIND_TRSM, split,
+                                       1).astype(np.int32)
+    for r, items in enumerate(mk_t.trsm_work_items(stream)):
+        if kinds[r] != mk_t.KIND_TRSM:
+            assert items == []
+            continue
+        rows = mk_t.TRSM_ROWS // int(stream["run_split"][r])
+        cover = np.zeros((npairs[r], nb), np.int64)
+        for t, r0, nr in items:
+            assert 0 < nr <= rows and r0 % rows == 0
+            cover[t, r0:r0 + nr] += 1
+        assert (cover == 1).all(), r
+        assert len(items) == npairs[r] * -(-nb // rows)
+
+
+@pytest.mark.parametrize("nb", [48, 128])
+def test_factor_trsm_items_cut_pairs_into_bands(nb):
+    """Hand-made TRSM runs of 1, 40 and 200 pairs at a tile size above the
+    bands (the poisson cases have nb <= 16, one band a pair): the split is
+    4, 2 and 1 where nb = 128 and every (pair, row) is one item's."""
+    rows_ = 4 * nb
+    tile = lambda k: np.full(k, nb, np.int64)
+    runs = [(mk_t.KIND_TRSM, {"wr": np.zeros(k, np.int64), "wc": tile(k),
+                              "dst": tile(k), "aux": np.full(k, nb),
+                              "srcn": np.zeros(k, np.int64)}, None, None)
+            for k in (1, 40, 200)]
+    stream = mk_t.assemble_stream(runs, nb, rows_)
+    bands = -(-nb // mk_t.TRSM_ROWS)
+    assert list(stream["run_split"]) == [
+        4 if 4 * k * bands <= mk_t.BLOCKS else 2 if 2 * k * bands
+        <= mk_t.BLOCKS else 1 for k in (1, 40, 200)]
+    if nb == 128:
+        assert list(stream["run_split"]) == [4, 2, 1]
+    for r, items in enumerate(mk_t.trsm_work_items(stream)):
+        k = (1, 40, 200)[r]
+        rows = mk_t.TRSM_ROWS // int(stream["run_split"][r])
+        cover = np.zeros((k, nb), np.int64)
+        for t, r0, nr in items:
+            cover[t, r0:r0 + nr] += 1
+        assert (cover == 1).all() and len(items) == k * -(-nb // rows)
+
+
+def test_factor_stream_parts_alternate(host):
+    """The kernel launches the stream in parts (run_parts): consecutive
+    runs of one side, UPD or POTRF/TRSM, the sides alternating, every run
+    in exactly one part and in order; the device copy carries them."""
+    nb, fp = host["nb"], host["fplan_t"]
+    stream = mk_t.build_mega_stream(fp, (fp.nblocks + 1) * nb)
+    kinds = stream["run_kind"]
+    parts, fac = mk_t.run_parts(kinds)
+    assert parts[0] == 0 and parts[-1] == len(kinds)
+    assert (np.diff(parts) > 0).all() and len(fac) == len(parts) - 1
+    assert (np.diff(fac) != 0).all()
+    for p0, p1, f in zip(parts[:-1], parts[1:], fac):
+        assert ((kinds[p0:p1] != mk_t.KIND_UPD) == bool(f)).all()
+    dev = mk_t.stream_to_device(stream, "cpu")
+    assert np.array_equal(dev["parts"], parts)
+    assert np.array_equal(dev["part_fac"], fac)
+    assert dev["parts"].dtype == np.int32 and dev["parts"].flags.c_contiguous
+
+
 def solve_stream_np(pool, work, runs, nb):
     """The solve stream's semantics written out in NumPy (float64): the
     oracle of the plain version on hand-made streams."""
