@@ -10,6 +10,10 @@
     python3 chip_smoke.py --factor-only   # only steps 3 and 5 for the factor
                                           # stream kernel, with its item
                                           # latencies
+    python3 chip_smoke.py --scan-only     # only steps 2 and 5 for the level
+                                          # path: its four kernels per
+                                          # launch, their device share and
+                                          # single-tile latencies
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -25,8 +29,12 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      one kernel, each solve sweep as one kernel) the same way, with the same
      checks, and requires the stream executors to be the ones that ran;
   4. holds each kernel against its plain PyTorch version on the card: the
-     four batched kernels on edge-case batches and at every shape the level
-     path gave them (one comparison per level of the plan), the two stream
+     four batched kernels on edge-case batches (the potrf and left-solve
+     kernels also at the edges of their panels and chunks: kv 0, 1, 15-17,
+     31-33, 127 and nb, nb 8, 48, 128 and 256, nrhs 1, 4, 63-65 and 130,
+     float32 and float64, failed pivots at columns 0 and 17) and at every
+     shape the level path gave them (one comparison per level of the
+     plan), the two stream
      kernels on the poisson3d(32) pool (also against the level executor's
      factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
      run with 1, 3 and all blocks (the solve stream's at nrhs 1 to 128 with
@@ -34,7 +42,9 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      and 256, float32 and float64; the factor stream's POTRF and TRSM runs
      at kv 0, 1, 31, 32, 33, 127 and nb, nb 8, 48, 128 and 256, narrow and
      wide, and a failed pivot); and times them there (CUDA events, after a
-     warm-up), the stream kernels also run by run (``stream_run_times``,
+     warm-up, as the host issues the launches; the level kernels also on
+     the device alone, their launches queued back to back: ``device_ms``),
+     the stream kernels also run by run (``stream_run_times``,
      ``solve_run_times``: by kind, and over the runs with fewer work items
      than blocks and the others, each kind beside its bound) and the factor
      stream's single items and grid barrier (``factor_item_times``);
@@ -95,6 +105,36 @@ def time_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def time_device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the device alone: after one warm-up
+    the ``reps`` calls are queued behind a sleep kernel that outlasts their
+    enqueue, so the wrapper's host time (Python, ctypes, allocation) is
+    hidden and the launches run back to back (each still pays the device's
+    gap between two launches).  The smaller of two such passes, so that a
+    stall of the host longer than the sleep does not count.
+    :func:`time_ms` times the same calls as the host issues them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(2):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        # 2e9 cycles a second or fewer: the sleep lasts at least this long
+        torch.cuda._sleep(int(2e9 * (3 * host_s + 2e-3)))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    return best
 
 
 def bwd_err(a, x, b) -> float:
@@ -194,15 +234,19 @@ def update_work(fex, nb: int) -> dict:
     return {k: sum(w[k] for w in levels) / 1e9 for k in keys}
 
 
-def update_rates(gflop: dict, ms: float) -> dict:
+def update_rates(gflop: dict, ms: float, device_ms=None) -> dict:
     """Useful, executed and dense-equivalent GFLOP of one factorization's
     update tasks (as :func:`update_work` counts them) and the rates that
-    ``ms`` of update time gives."""
-    return dict(ms=ms, useful_gflop=gflop["unmasked_trimmed_k"],
-                executed_gflop=gflop["executed"],
-                dense_equivalent_gflop=gflop["dense_trimmed_k_slabs"],
-                useful_tflops=gflop["unmasked_trimmed_k"] / ms,
-                executed_tflops=gflop["executed"] / ms)
+    ``ms`` of update time gives; ``device_ms``, the same launches' time on
+    the device alone, beside it where measured."""
+    out = dict(ms=ms, useful_gflop=gflop["unmasked_trimmed_k"],
+               executed_gflop=gflop["executed"],
+               dense_equivalent_gflop=gflop["dense_trimmed_k_slabs"],
+               useful_tflops=gflop["unmasked_trimmed_k"] / ms,
+               executed_tflops=gflop["executed"] / ms)
+    if device_ms is not None:
+        out["device_ms"] = device_ms
+    return out
 
 
 def update_levels_check(num, fex) -> dict:
@@ -210,13 +254,14 @@ def update_levels_check(num, fex) -> dict:
     executor ``fex``: held against its plain version on the factor pool of
     ``num`` (float32: 1e-5 of the size of the update), then timed on a copy
     of it (the values do not change the work).  Returns the summed
-    milliseconds and the largest error."""
+    milliseconds (as the host issues the launches, and on the device
+    alone) and the largest error."""
     from spllt_tpu_torch.numeric.hopper_update import (apply_updates,
                                                        apply_updates_plain)
 
     base = num.pool.view(-1, fex.nb)
     work = base.clone()
-    total, worst, levels = 0.0, 0.0, 0
+    total, dev, worst, levels = 0.0, 0.0, 0.0, 0
     for lv in fex.levels:
         if "upd" not in lv:
             continue
@@ -228,9 +273,11 @@ def update_levels_check(num, fex) -> dict:
         worst = max(worst, rel)
         del got, ref
         total += time_ms(lambda: apply_updates(work, lv["upd"]), 3)
+        dev += time_device_ms(lambda: apply_updates(work, lv["upd"]), 3)
         levels += 1
     del work
-    return dict(ms=total, levels_checked=levels, max_rel_err=worst)
+    return dict(ms=total, device_ms=dev, levels_checked=levels,
+                max_rel_err=worst)
 
 
 def main_path(m: int, card: str, full_checks: bool, schedule: str):
@@ -447,22 +494,30 @@ def compare(name, kernel, plain, args, tol, reps, library=None):
 
 
 class Acc:
-    """Sums of one kernel row: times, errors, and the bound as the sum of
-    its launches' (or runs') bounds, each the larger of bytes over the
+    """Sums of one kernel row: times (as the host issues the launches, and
+    where measured on the device alone), errors, and the bound as the sum
+    of its launches' (or runs') bounds, each the larger of bytes over the
     memory rate and operations over the float32 rate."""
 
     def __init__(self):
         self.n = 0
         self.ms = self.pms = self.tb = self.to = 0.0
-        self.lms = None
+        self.lms = self.dms = self.pdms = self.ldms = None
         self.bytes = self.flops = 0
         self.mabs = self.rel = 0.0
         self.kmax = 0
 
-    def add(self, batch, mabs, rel, ms, pms, lms, nbytes, flops):
+    def add(self, batch, mabs, rel, ms, pms, lms, nbytes, flops,
+            device=(None, None, None)):
+        """One launch: its times as the host issues it (kernel, plain,
+        library or None) and ``device``, the same three on the device alone
+        (each None where not measured)."""
         self.n += 1
         if lms is not None:
             self.lms = (self.lms or 0.0) + lms
+        for k, v in zip(("dms", "pdms", "ldms"), device):
+            if v is not None:
+                setattr(self, k, (getattr(self, k) or 0.0) + v)
         self.kmax = max(self.kmax, batch)
         self.ms += ms
         self.pms += pms
@@ -490,8 +545,9 @@ def kernel_row(name, src_key, replaces, acc, per, shape, launches, tol):
         max_abs_err=acc.mabs, rel_err=acc.rel, tol_rel=tol,
         ms=acc.ms, plain_ms=acc.pms, bound_ms=(acc.tb + acc.to) * 1e3,
         bound_by="bytes" if acc.tb >= acc.to else "operations",
-        library_ms=acc.lms, launches_timed=acc.n, per=per, shape=shape,
-        bytes=acc.bytes, flops=acc.flops)
+        library_ms=acc.lms, device_ms=acc.dms, plain_device_ms=acc.pdms,
+        library_device_ms=acc.ldms, launches_timed=acc.n, per=per,
+        shape=shape, bytes=acc.bytes, flops=acc.flops)
 
 
 def kernel_phase(num, fex, sex, nrhs, launches):
@@ -583,122 +639,96 @@ def kernel_phase(num, fex, sex, nrhs, launches):
     # launches of ONE factorization (potrf, trsm, update) or ONE forward +
     # backward sweep (left_solve).  The bound of a row is the sum of its
     # launches' bounds.
-    esz = 4
-
-    def row(name, src_key, replaces, acc, per, shape):
-        out.append(kernel_row(name, src_key, replaces, acc, per, shape,
-                              launches, TOL32))
-
-    # K1 potrf: each level's kv table, synthetic SPD tiles
-    acc = Acc()
-    for lv in fex.levels:
-        if "potrf" not in lv:
-            continue
-        kv_t = lv["potrf"][1]
-        kvs = kv_t.cpu().numpy()
-        tiles = spd_tiles(rng, kvs, nb, f32)
-        acc.add(len(kvs), *compare(
-            "potrf", hopper_potrf.potrf, hopper_potrf.potrf_plain,
-            lambda: (tiles, kv_t), TOL32, 3), *potrf_work(kvs, nb, esz))
-    row("potrf", "potrf", "spllt_tpu/numeric/pallas_potrf.py:167", acc,
-        "factorization", f"tiles [K,{nb},{nb}], K up to {acc.kmax}")
-
-    ar = torch.arange(nb, device="cuda")
-    eye = torch.eye(nb, dtype=f32, device="cuda")
-    # K2 trsm: each level's pairs, the real factor's diag tiles as L,
-    # random dst
-    acc = Acc()
-    for lv in fex.levels:
-        if "trsm" not in lv:
-            continue
-        dg, _, kv_t = lv["trsm"]
-        kvs = kv_t.cpu().numpy().astype(np.int64)
-        lt = num.pool[dg]
-        dst = torch.as_tensor(
-            rng.standard_normal(tuple(lt.shape), dtype=np.float32),
-            device="cuda")
-        # the library call: one triangular solve against the identity-padded
-        # tile (it also computes the columns >= kv that trsm zeroes)
-        lpad_t = (lt + (eye[None] * (ar[None, :, None]
-                                     >= kv_t[:, None, None]))).mT
-        acc.add(len(kvs), *compare(
-            "trsm", hopper_trsm.trsm, hopper_trsm.trsm_plain,
-            lambda: (lt, dst, kv_t), TOL32, 3,
-            lambda: torch.linalg.solve_triangular(lpad_t, dst, upper=True,
-                                                  left=False)),
-            *trsm_work(kvs, nb, esz))
-        del lt, dst, lpad_t
-    row("trsm", "trsm", "spllt_tpu/numeric/pallas_trsm.py:122", acc,
-        "factorization", f"pairs [K,{nb},{nb}], K up to {acc.kmax}")
-
-    # K3 update: each level's own task tables on a random pool of the real
-    # pool's shape
-    acc = Acc()
-    poolf = torch.as_tensor(
-        rng.standard_normal((fex.pool_rows, nb), dtype=np.float32),
-        device="cuda")
-    work = poolf.clone()
-    nseg_tot = 0
-    for lv in fex.levels:
-        if "upd" not in lv:
-            continue
-        tasks = lv["upd"]
-        got = hopper_update.apply_updates(poolf.clone(), tasks)
-        ref = hopper_update.apply_updates_plain(poolf.clone(), tasks)
-        torch.cuda.synchronize()
-        mabs, rel = rel_err(got, ref, poolf)
-        require(rel <= TOL32, f"update: rel err {rel} > {TOL32}")
-        del got, ref
-        work.copy_(poolf)
-        ms = time_ms(lambda: hopper_update.apply_updates(work, tasks), 3)
-        pms = time_ms(
-            lambda: hopper_update.apply_updates_plain(work, tasks), 3)
-        w = update_level_work(tasks, nb)
-        nseg_tot += w["segments"]
-        acc.add(w["tasks"], mabs, rel, ms, pms, None,
-                *update_work_bound(w, nb, esz))
-    row("update", "update", "spllt_tpu/numeric/pallas_update.py:312", acc,
-        "factorization",
-        f"{fex.num_micro_tasks} micro-tasks in {nseg_tot} segments, up to "
-        f"{acc.kmax} a launch, pool [{fex.pool_rows},{nb}]")
-    del poolf, work
-
-    # K5 left solve: each level of the forward and of the backward sweep,
-    # the real factor's tiles, the main path's nrhs
-    acc = Acc()
-    for levels, tr in ((sex._fwd_levels, False), (sex._bwd_levels, True)):
-        for lv in levels:
-            if "sol" not in lv:
-                continue
-            kv_t = lv["sol"]["kv"]
-            kvs = kv_t.cpu().numpy().astype(np.int64)
-            tl = num.pool[lv["sol"]["blk"]]
-            z = torch.as_tensor(
-                rng.standard_normal((len(kvs), nb, nrhs), dtype=np.float32),
-                device="cuda")
-            # the library call: one triangular solve with the
-            # identity-padded tile
-            mpad = tl + (eye[None] * (ar[None, :, None]
-                                      >= kv_t[:, None, None]))
-            if tr:
-                mpad = mpad.mT
-            acc.add(len(kvs), *compare(
-                "left_solve", hopper_solve.left_solve,
-                hopper_solve.left_solve_plain,
-                lambda: (tl, z, kv_t, tr), TOL32, 3,
-                lambda: torch.linalg.solve_triangular(mpad, z, upper=tr)),
-                # read: the lower trapezoid of the columns < kv, z; written: y
-                int(trapezoid(kvs, nb).sum()) * esz
-                + 2 * len(kvs) * nb * nrhs * esz + len(kvs) * 4,
-                int((nrhs * kvs * kvs
-                     + 2 * nrhs * (nb - kvs) * kvs).sum()))
-            del tl, z, mpad
-    row("left_solve", "solve", "spllt_tpu/numeric/pallas_solve.py:135", acc,
-        "forward+backward sweep",
-        f"tiles [K,{nb},{nb}], z [K,{nb},{nrhs}], K up to {acc.kmax}")
+    _, levels = scan_level_times(num, fex, sex, (nrhs,), plain_times=True)
+    for name, src_key, replaces, per, keys in (
+            ("potrf", "potrf", "pallas_potrf.py:167", "factorization",
+             ("potrf",)),
+            ("trsm", "trsm", "pallas_trsm.py:122", "factorization",
+             ("trsm",)),
+            ("update", "update", "pallas_update.py:312", "factorization",
+             ("update",)),
+            ("left_solve", "solve", "pallas_solve.py:135",
+             "forward+backward sweep",
+             (f"left_solve_fwd_nrhs{nrhs}", f"left_solve_bwd_nrhs{nrhs}"))):
+        acc = Acc()
+        ms = lambda r, k: r[k] / 1e3 if k in r else None
+        for k in keys:
+            for r in levels[k]:
+                acc.add(r["items"], r["mabs"], r["rel"], ms(r, "us"),
+                        ms(r, "plain_us"), ms(r, "library_us"), r["bytes"],
+                        r["flops"], (ms(r, "device_us"),
+                                     ms(r, "plain_device_us"),
+                                     ms(r, "library_device_us")))
+        if name == "update":
+            shape = (f"{fex.num_micro_tasks} micro-tasks in "
+                     f"{sum(r['items'] for r in levels['update'])} segments,"
+                     f" up to {acc.kmax} a launch, pool "
+                     f"[{fex.pool_rows},{nb}]")
+        else:
+            shape = (f"{'pairs' if name == 'trsm' else 'tiles'} "
+                     f"[K,{nb},{nb}]"
+                     + (f", z [K,{nb},{nrhs}]" if name == "left_solve" else "")
+                     + f", K up to {acc.kmax}")
+        out.append(kernel_row(name, src_key, "spllt_tpu/numeric/" + replaces,
+                              acc, per, shape, launches, TOL32))
     edge_out = {k: {"max_abs": v[0], "rel": v[1]} for k, v in edge.items()}
     edge_out["trsm_f32_nb256_64_full_pairs"] = nb256
     return out, edge_out
+
+
+LEVEL_EDGE_KV = (0, 1, 15, 16, 17, 31, 32, 33, 127)   # and nb
+LEVEL_EDGE_NRHS = (1, 4, 63, 64, 65, 130)
+
+
+def level_edge_batches() -> dict:
+    """K1 and K5 at the edges of their panels and chunks: nb 8, 48, 128 and
+    256, float32 and float64, one batch of tiles at kv 0, 1, 15, 16, 17,
+    31, 32, 33, 127 and nb (those <= nb); K1 against its plain version, K5
+    on K1's plain factor at nrhs 1, 4, 63, 64, 65 and 130, each direction;
+    tiles whose pivot fails at column 0 and at column 17 must come back NaN
+    everywhere from both routes.  Within 1e-5 (float32) and 1e-11
+    (float64) of max|ref|.  Returns the worst error by kernel and dtype."""
+    from spllt_tpu_torch.numeric import hopper_potrf, hopper_solve
+
+    rng = np.random.default_rng(SEED + 10)
+    tols = {torch.float32: 1e-5, torch.float64: 1e-11}
+    worst, batches = {}, 0
+
+    def held(tag, got, ref, dtype):
+        nonlocal batches
+        rel = rel_err(got, ref)[1]
+        require(rel <= tols[dtype], f"edge batch {tag}: rel err {rel}")
+        key = f"{tag.split('_')[0]}_{str(dtype)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        batches += 1
+
+    for dtype in (torch.float32, torch.float64):
+        for nb in (8, 48, 128, 256):
+            kvs = sorted({min(k, nb) for k in LEVEL_EDGE_KV + (nb,)})
+            kv = torch.as_tensor(np.asarray(kvs, np.int32), device="cuda")
+            tiles = spd_tiles(rng, kvs, nb, dtype)
+            lfac = hopper_potrf.potrf_plain(tiles, kv)
+            held(f"potrf_nb{nb}", hopper_potrf.potrf(tiles, kv), lfac, dtype)
+            for r_ in LEVEL_EDGE_NRHS:
+                z = torch.as_tensor(rng.standard_normal((len(kvs), nb, r_)),
+                                    dtype=dtype, device="cuda")
+                for tr in (False, True):
+                    held(f"solve_nb{nb}_nrhs{r_}_{'T' if tr else 'N'}",
+                         hopper_solve.left_solve(lfac, z, kv, tr),
+                         hopper_solve.left_solve_plain(lfac, z, kv, tr),
+                         dtype)
+            for col in (0, 17):
+                if col >= nb:
+                    continue
+                bad = tiles[-1:].clone()          # kv = nb
+                bad[0, col, col] = -100.0
+                for route in (hopper_potrf.potrf, hopper_potrf.potrf_plain):
+                    got = route(bad, kv[-1:])
+                    require(bool(torch.isnan(got).all()),
+                            f"potrf nb={nb} {dtype}: a pivot failing at "
+                            f"column {col} did not make the tile NaN")
+                batches += 1
+    return dict(batches=batches, worst_rel=worst)
 
 
 def update_synthetic() -> dict:
@@ -707,7 +737,7 @@ def update_synthetic() -> dict:
     tiles; every row and column live and srcn=128 ('dense'); 32 live rows
     and columns, srcn=128; 6 live rows and columns, srcn=5.  Each is held
     against the plain version, then timed (CUDA events); the rate is the
-    useful work over the time."""
+    useful work over the time as the host issues the launches."""
     from spllt_tpu_torch.numeric import hopper_update as hu
 
     rng = np.random.default_rng(SEED + 4)
@@ -739,7 +769,8 @@ def update_synthetic() -> dict:
         ms = time_ms(lambda: hu.apply_updates(pool, tasks), 3)
         useful = 2 * live * live * kn * k / 1e9
         out[name] = dict(ms=ms, useful_gflop=useful, useful_tflops=useful / ms,
-                         rel_err=rel)
+                         rel_err=rel, device_ms=time_device_ms(
+                             lambda: hu.apply_updates(pool, tasks), 3))
     return out
 
 
@@ -1439,10 +1470,10 @@ def edge_stream_phase():
     return out
 
 
-def profile_main_path(num, fex, sex, nrhs, path):
+def profile_main_path(num, fex, sex, nrhs):
     """Kernel-time breakdown of one factorization and one forward+backward
-    sweep by torch.profiler, written to ``path`` (device time by kernel
-    name).  Returns the summed device kernel time of each."""
+    sweep by torch.profiler.  Returns the summed device kernel time of each
+    and the profiler's tables (device time by kernel name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1456,33 +1487,32 @@ def profile_main_path(num, fex, sex, nrhs, path):
         fex(assemble_torch(num.plan, num.values_perm, torch.float32,
                            num.pool.device))
 
-    shares = {}
-    with open(path, "w") as f:
-        for tag, fn in (("factor", one_factor),
-                        ("solve_fwd_bwd", lambda: sex.full(num.pool, xp))):
+    shares, tables = {}, []
+    for tag, fn in (("factor", one_factor),
+                    ("solve_fwd_bwd", lambda: sex.full(num.pool, xp))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            ka = prof.key_averages()
-            # device rows only: operator rows repeat their kernels' time
-            dev_ms = sum(e.self_device_time_total for e in ka
-                         if e.device_type == DeviceType.CUDA) / 1e3
-            ours = {k: sum(e.self_device_time_total for e in ka
-                           if e.device_type == DeviceType.CUDA
-                           and "::" + k + "_" in e.key) / 1e3
-                    for k in ("potrf", "trsm", "update", "left_solve",
-                              "mega_factor", "mega_solve")}
-            shares[tag] = {"device_kernel_ms": dev_ms,
-                           "by_hand_kernel_ms": {k: v for k, v in
-                                                 ours.items() if v}}
-            f.write(f"==== {tag}: device kernel time {dev_ms:.3f} ms\n")
-            f.write(ka.table(sort_by="self_device_time_total",
-                             row_limit=25, max_name_column_width=70))
-            f.write("\n")
-    return shares
+        ka = prof.key_averages()
+        # device rows only: operator rows repeat their kernels' time
+        dev_ms = sum(e.self_device_time_total for e in ka
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        ours = {k: sum(e.self_device_time_total for e in ka
+                       if e.device_type == DeviceType.CUDA
+                       and "::" + k + "_" in e.key) / 1e3
+                for k in ("potrf", "trsm", "update", "left_solve",
+                          "mega_factor", "mega_solve")}
+        shares[tag] = {"device_kernel_ms": dev_ms,
+                       "by_hand_kernel_ms": {k: v for k, v in ours.items()
+                                             if v}}
+        tables.append(f"==== {tag}: device kernel time {dev_ms:.3f} ms\n"
+                      + ka.table(sort_by="self_device_time_total",
+                                 row_limit=25, max_name_column_width=70)
+                      + "\n")
+    return shares, "".join(tables)
 
 
 def solve_stream_phase(num, sex, rec, card, run_times: bool = True) -> dict:
@@ -1503,6 +1533,226 @@ def solve_stream_phase(num, sex, rec, card, run_times: bool = True) -> dict:
         emit("solve_run_times", card=card, matrix=rec["matrix"],
              **solve_run_times(num, sex))
     return row
+
+
+def level_launch(check, run, items, nbytes, flops, plain=None,
+                 library=None, reps: int = 5) -> dict:
+    """One launch of a level kernel at a level's shape: ``check()`` holds it
+    against its plain version and returns (max abs error, relative error);
+    ``run()`` launches it for the timing.  Microseconds as the host issues
+    the launches (``us``) and on the device alone (``device_us``, launches
+    back to back), the bound, and the same two times of ``plain`` (its
+    plain version) and ``library`` (one PyTorch call computing the same
+    function) where given."""
+    mabs, rel = check()
+    out = dict(items=int(items), mabs=mabs, rel=rel,
+               bound_us=1e6 * max(nbytes / H100_BYTES_PER_S,
+                                  flops / H100_F32_FLOPS),
+               bytes=int(nbytes), flops=int(flops))
+    for tag, fn in (("", run), ("plain_", plain), ("library_", library)):
+        if fn is not None:
+            out[f"{tag}us"] = 1e3 * time_ms(fn, reps)
+            out[f"{tag}device_us"] = 1e3 * time_device_ms(fn, reps)
+    return out
+
+
+def level_summary(rows: list, sms: int) -> dict:
+    """Sums over the launches of one kernel (one factorization, or one
+    sweep direction at one nrhs): ms as the host issues the launches, ms on
+    the device alone, bound ms, and the same over the launches with fewer
+    work items than the card has SMs ("narrow") and the others ("wide")."""
+    def part(rs):
+        return dict(launches=len(rs),
+                    ms=sum(r["us"] for r in rs) / 1e3,
+                    device_ms=sum(r["device_us"] for r in rs) / 1e3,
+                    bound_ms=sum(r["bound_us"] for r in rs) / 1e3,
+                    device_us_per_launch=(
+                        sum(r["device_us"] for r in rs) / len(rs)
+                        if rs else None))
+    return dict(**part(rows), max_rel=max((r["rel"] for r in rows),
+                                          default=0.0),
+                narrow=part([r for r in rows if r["items"] < sms]),
+                wide=part([r for r in rows if r["items"] >= sms]))
+
+
+def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
+                     plain_times: bool = False):
+    """K1, K2, K3 and K5 at every level shape the level main path gave
+    them, each launch held against its plain version (float32, 1e-5 of
+    max|ref|; the update: of the size of the update) and timed as the host
+    issues it and on the device alone: K1/K2/K3 over one factorization, K5
+    per sweep direction at each of ``nrhs_list``.  K1 takes synthetic SPD
+    tiles with each level's kv, K2 and K5 the real factor's tiles, K3 each
+    level's own task tables on a random pool of the real pool's shape.
+    ``plain_times``: also the times of the plain versions and, for
+    K2 and K5, of one ``torch.linalg.solve_triangular`` call on the
+    identity-padded tiles.  Returns (summary by kernel, per-launch rows by
+    kernel)."""
+    from spllt_tpu_torch.numeric import (hopper_potrf, hopper_solve,
+                                         hopper_trsm, hopper_update)
+
+    rng = np.random.default_rng(SEED + 8)
+    nb, esz, tol = fex.nb, 4, 1e-5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    levels = {"potrf": [], "trsm": [], "update": []}
+    ar = torch.arange(nb, device="cuda")
+    eye = torch.eye(nb, dtype=torch.float32, device="cuda")
+    opt = lambda fn: fn if plain_times else None
+
+    def checked(got, ref, base=None):
+        torch.cuda.synchronize()
+        mabs, rel = rel_err(got, ref, base)
+        require(rel <= tol, f"level kernel differs from its plain version: "
+                            f"rel {rel} > {tol}")
+        return mabs, rel
+
+    def padded(tl, kv_t):
+        """The tiles with an identity on the diagonal of rows >= kv."""
+        return tl + eye[None] * (ar[None, :, None] >= kv_t[:, None, None])
+
+    poolf = torch.as_tensor(
+        rng.standard_normal((fex.pool_rows, nb), dtype=np.float32),
+        device="cuda")
+    work = poolf.clone()
+    for lv in fex.levels:
+        if "upd" in lv:
+            t = lv["upd"]
+            w = update_level_work(t, nb)
+            levels["update"].append(dict(level_launch(
+                lambda: checked(hopper_update.apply_updates(poolf.clone(), t),
+                                hopper_update.apply_updates_plain(
+                                    poolf.clone(), t), poolf),
+                lambda: hopper_update.apply_updates(work, t),
+                w["segments"], *update_work_bound(w, nb, esz),
+                plain=opt(lambda: hopper_update.apply_updates_plain(work, t))),
+                tasks=w["tasks"]))
+        if "potrf" in lv:
+            kv_t = lv["potrf"][1]
+            kvs = kv_t.cpu().numpy().astype(np.int64)
+            tiles = spd_tiles(rng, kvs, nb, torch.float32)
+            levels["potrf"].append(dict(level_launch(
+                lambda: checked(hopper_potrf.potrf(tiles, kv_t),
+                                hopper_potrf.potrf_plain(tiles, kv_t)),
+                lambda: hopper_potrf.potrf(tiles, kv_t),
+                len(kvs), *potrf_work(kvs, nb, esz),
+                plain=opt(lambda: hopper_potrf.potrf_plain(tiles, kv_t))),
+                kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
+        if "trsm" in lv:
+            dg, _, kv_t = lv["trsm"]
+            kvs = kv_t.cpu().numpy().astype(np.int64)
+            lt = num.pool[dg]
+            dst = torch.as_tensor(
+                rng.standard_normal(tuple(lt.shape), dtype=np.float32),
+                device="cuda")
+            # the library call also computes the columns >= kv trsm zeroes
+            lpad_t = padded(lt, kv_t).mT
+            levels["trsm"].append(dict(level_launch(
+                lambda: checked(hopper_trsm.trsm(lt, dst, kv_t),
+                                hopper_trsm.trsm_plain(lt, dst, kv_t)),
+                lambda: hopper_trsm.trsm(lt, dst, kv_t),
+                len(kvs), *trsm_work(kvs, nb, esz),
+                plain=opt(lambda: hopper_trsm.trsm_plain(lt, dst, kv_t)),
+                library=opt(lambda: torch.linalg.solve_triangular(
+                    lpad_t, dst, upper=True, left=False))),
+                kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
+    del poolf, work
+    for r_ in nrhs_list:
+        for lvs, tr, tag in ((sex._fwd_levels, False, "fwd"),
+                             (sex._bwd_levels, True, "bwd")):
+            rows = levels[f"left_solve_{tag}_nrhs{r_}"] = []
+            for lv in lvs:
+                if "sol" not in lv:
+                    continue
+                kv_t = lv["sol"]["kv"]
+                kvs = kv_t.cpu().numpy().astype(np.int64)
+                tl = num.pool[lv["sol"]["blk"]]
+                z = torch.as_tensor(rng.standard_normal(
+                    (len(kvs), nb, r_), dtype=np.float32), device="cuda")
+                mpad = padded(tl, kv_t)
+                if tr:
+                    mpad = mpad.mT
+                rows.append(dict(level_launch(
+                    lambda: checked(
+                        hopper_solve.left_solve(tl, z, kv_t, tr),
+                        hopper_solve.left_solve_plain(tl, z, kv_t, tr)),
+                    lambda: hopper_solve.left_solve(tl, z, kv_t, tr),
+                    len(kvs),
+                    # read: the lower trapezoid of the columns < kv, z;
+                    # written: y
+                    int(trapezoid(kvs, nb).sum()) * esz
+                    + 2 * len(kvs) * nb * r_ * esz + len(kvs) * 4,
+                    int((r_ * kvs * kvs
+                         + 2 * r_ * (nb - kvs) * kvs).sum()),
+                    plain=opt(lambda: hopper_solve.left_solve_plain(
+                        tl, z, kv_t, tr)),
+                    library=opt(lambda: torch.linalg.solve_triangular(
+                        mpad, z, upper=tr))),
+                    kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
+    return {k: level_summary(v, sms) for k, v in levels.items()}, levels
+
+
+def level_item_times(nb: int = 128, reps: int = 20) -> dict:
+    """Latency of one launch of a level kernel on one tile (float32, nb
+    128; microseconds on the device, launches back to back, so each
+    includes the gap between two launches): K1 at kv 0, 16, 32, 64 and nb,
+    and on one kv = nb tile per SM; K5 at kv 0, 32 and nb, nrhs 4 and 64,
+    each direction."""
+    from spllt_tpu_torch.numeric.hopper_potrf import potrf, potrf_plain
+    from spllt_tpu_torch.numeric.hopper_solve import left_solve
+
+    rng = np.random.default_rng(SEED + 9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    for kv in sorted({min(k, nb) for k in (0, 16, 32, 64, nb)}):
+        t, k = spd_tiles(rng, [kv], nb, torch.float32), i32([kv])
+        out[f"potrf_us_kv{kv}"] = 1e3 * time_device_ms(lambda: potrf(t, k),
+                                                       reps)
+    t, k = spd_tiles(rng, [nb] * sms, nb, torch.float32), i32([nb] * sms)
+    out[f"potrf_us_kv{nb}_{sms}_tiles"] = 1e3 * time_device_ms(
+        lambda: potrf(t, k), reps)
+    for kv in sorted({min(k, nb) for k in (0, 32, nb)}):
+        k = i32([kv])
+        tl = potrf_plain(spd_tiles(rng, [kv], nb, torch.float32), k)
+        for r_ in (4, 64):
+            z = torch.as_tensor(rng.standard_normal((1, nb, r_)),
+                                dtype=torch.float32, device="cuda")
+            for tr, tag in ((False, "fwd"), (True, "bwd")):
+                out[f"left_solve_us_{tag}_kv{kv}_nrhs{r_}"] = \
+                    1e3 * time_device_ms(lambda: left_solve(tl, z, k, tr),
+                                         reps)
+    return dict(dtype="float32", nb=nb, sms=sms, **out)
+
+
+def scan_only(card: str, large: bool, t_start: float) -> int:
+    """``--scan-only``: the level main path (``schedule='scan'``) at
+    poisson3d(32) and (64); K1, K2, K3 and K5 at every level shape it gave
+    them (:func:`scan_level_times`, K5 per direction at nrhs 1, 4 and 64),
+    the device time of one factorization and one sweep against their
+    CUDA-event times (how much of each is the host's level loop), and the
+    single-tile latencies of :func:`level_item_times`.  Runs against any tree
+    whose level kernels have the same wrappers (to compare two trees in one
+    call)."""
+    for m in (32, 64) if large else (32,):
+        rec, num, fex, sex = main_path(m, card, False, "scan")
+        emit("main_path", **rec)
+        summary, _ = scan_level_times(num, fex, sex)
+        emit("scan_level_times", card=card, matrix=rec["matrix"],
+             launches=rec["launches"], **summary)
+        prof, _ = profile_main_path(num, fex, sex, rec["nrhs"])
+        emit("scan_device_share", card=card, matrix=rec["matrix"],
+             factor_ms=rec["factor_ms"],
+             solve_fwd_bwd_ms=rec["solve_fwd_bwd_ms"], **prof)
+        del num, fex, sex
+        torch.cuda.empty_cache()
+    emit("level_edge_batches", card=card, **level_edge_batches())
+    emit("level_item_times", card=card, **level_item_times())
+    emit("elapsed", seconds=time.perf_counter() - t_start)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def solve_only(card: str, large: bool, run_times: bool,
@@ -1580,6 +1830,10 @@ def main() -> int:
     ap.add_argument("--factor-only", action="store_true",
                     help="only the stream main path and the factor stream "
                          "kernel's checks and times (poisson3d 32 and 64)")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="only the level main path and its four kernels at "
+                         "every level shape, per launch (poisson3d 32 and "
+                         "64), and their single-tile latencies")
     ap.add_argument("--no-run-times", action="store_true",
                     help="with --solve-only: skip the per-run times (for a "
                          "tree whose solve stream has no work_items)")
@@ -1607,6 +1861,8 @@ def main() -> int:
                           t_start)
     if args.factor_only:
         return factor_only(card, not args.no_large, t_start)
+    if args.scan_only:
+        return scan_only(card, not args.no_large, t_start)
 
     # level path (schedule='scan') and its four kernels
     rec, num, fex, sex = main_path(32, card, True, "scan")
@@ -1614,14 +1870,23 @@ def main() -> int:
     kernels, edge = kernel_phase(num, fex, sex, rec["nrhs"],
                                  rec["launches"])
     emit("kernel_edge_cases", card=card, **edge)
+    emit("level_edge_batches", card=card, **level_edge_batches())
     emit("update_synthetic", card=card, **update_synthetic())
-    k3_ms = next(k["ms"] for k in kernels if k["name"] == "update")
+    k3 = next(k for k in kernels if k["name"] == "update")
     emit("update_rates", card=card, matrix=rec["matrix"], kernel="update",
-         **update_rates(rec["update_gflop"], k3_ms))
+         **update_rates(rec["update_gflop"], k3["ms"], k3["device_ms"]))
+
+    def profiled(path, schedule, rec, num, fex, sex):
+        """The profiler's breakdown of the main path, its tables to
+        ``path``."""
+        shares, tables = profile_main_path(num, fex, sex, rec["nrhs"])
+        with open(path, "w") as f:
+            f.write(tables)
+        emit("profile", card=card, matrix=rec["matrix"], schedule=schedule,
+             file=path, **shares)
+
     if args.profile:
-        emit("profile", card=card, matrix=rec["matrix"], schedule="scan",
-             file=args.profile,
-             **profile_main_path(num, fex, sex, rec["nrhs"], args.profile))
+        profiled(args.profile, "scan", rec, num, fex, sex)
     scan_pool = num.pool
     del num, fex, sex
 
@@ -1643,10 +1908,7 @@ def main() -> int:
          **update_rates(rec["update_gflop"], rt["upd_ms"]))
     emit("stream_edge_cases", card=card, **edge_stream_phase())
     if args.profile:
-        emit("profile", card=card, matrix=rec["matrix"], schedule="mega",
-             file=args.profile + ".mega",
-             **profile_main_path(num, fex, sex, rec["nrhs"],
-                                 args.profile + ".mega"))
+        profiled(args.profile + ".mega", "mega", rec, num, fex, sex)
     del num, fex, sex, scan_pool
     torch.cuda.empty_cache()
 
@@ -1662,7 +1924,7 @@ def main() -> int:
                 emit("update_rates", card=card, matrix=rec64["matrix"],
                      kernel="update", levels_checked=k3["levels_checked"],
                      max_rel_err=k3["max_rel_err"], **update_rates(
-                         rec64["update_gflop"], k3["ms"]))
+                         rec64["update_gflop"], k3["ms"], k3["device_ms"]))
                 scan_pool = num.pool
             else:
                 pool0, got, checks = mega_factor_check(num, fex, scan_pool)
@@ -1682,10 +1944,8 @@ def main() -> int:
                 del pool0
                 solve_stream_phase(num, sex, rec64, card)
             if args.profile:
-                path = f"{args.profile}.large.{schedule}"
-                emit("profile", card=card, matrix=rec64["matrix"],
-                     schedule=schedule, file=path,
-                     **profile_main_path(num, fex, sex, rec64["nrhs"], path))
+                profiled(f"{args.profile}.large.{schedule}", schedule, rec64,
+                         num, fex, sex)
             del num, fex, sex
             torch.cuda.empty_cache()
 

@@ -10,52 +10,55 @@
 //
 // Bound: bytes on the leaf levels (thousands of tiles with a handful of
 // factor columns: each tile is written once and only its columns < kv are
-// read), operations elsewhere, and there the dependent chain of the kv
-// columns of a tile.  One thread block per tile; the batch supplies the
-// parallelism across the SMs.  The working tile lives in shared memory when
-// it fits the 227 KB a block may use (nb = 128 in float or double),
-// otherwise the elimination runs in place on the output tile in global
-// memory, which stays in L2.  The columns go in panels of 8 to shorten the
-// chain: warp 0 factors the 8 x 8 diagonal block, rows as lanes, with
-// shuffles; then every row below solves its 8 panel entries against that
-// block in registers; then all warps apply the rank-8 update to the
-// trapezoid right of the panel.  Three block barriers per 8 columns.  A
-// non-positive (or NaN) pivot marks the tile as failed and the whole output
-// tile becomes NaN, which is what the caller's not-positive-definite guard
-// looks for.  The elimination itself is potrf_tile in potrf_body.cuh, which
-// the factor stream kernel (mega_factor.cu) runs too.
+// read), operations elsewhere, and there the latency of the dependent
+// chain of a tile's kv columns.  One thread block per tile; the batch
+// supplies the parallelism across the SMs.  The elimination is potrf_tile
+// in potrf_body.cuh, built from the pieces of the factor stream kernel's
+// POTRF item (mega_factor_body.cuh): the trapezoid staged by 16-byte
+// cp.async.cg, 16-column panels, the diagonal block factored in one warp's
+// registers with rsqrt, one thread a row below, register-tiled rank-16
+// updates, an identity pad instead of runtime guards.  The working tile
+// lives in shared memory when it fits the 227 KB a block may use (nb = 128
+// in float or double), otherwise the elimination runs on the output tile
+// in global memory, which stays in L2.  A non-positive (or NaN) pivot
+// makes the whole output tile NaN, which is what the caller's
+// not-positive-definite guard looks for.
 #include "potrf_body.cuh"
 
 namespace {
 
 using namespace spllt;
 
-template <typename T>
-__global__ void potrf_kernel(const T* __restrict__ in, T* __restrict__ out,
-                             const int* __restrict__ kvec, int nb,
-                             int in_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <typename T, bool SMEM>
+__global__ void __launch_bounds__(kFacNT)
+    potrf_kernel(const T* __restrict__ in, T* __restrict__ out,
+                 const int* __restrict__ kvec, int nb) {
   const size_t off = (size_t)blockIdx.x * nb * nb;
-  potrf_tile<T>(in + off, out + off, kvec[blockIdx.x], nb, in_smem, smem_raw,
-                threadIdx.x, blockDim.x);
+  potrf_tile<T, SMEM>(in + off, out + off, kvec[blockIdx.x], nb,
+                      threadIdx.x);
+}
+
+template <typename T, bool SMEM>
+int launch_as(const void* in, void* out, const int* kvec, int k, int nb,
+              size_t smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      potrf_kernel<T, SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  potrf_kernel<T, SMEM><<<k, kFacNT, smem, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, kvec, nb);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* in, void* out, const int* kvec, int k, int nb,
            void* stream) {
   if (k <= 0) return 0;
-  int in_smem = potrf_smem<T>(nb, true) <= (size_t)kMaxSmem;
-  size_t smem = potrf_smem<T>(nb, in_smem);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        potrf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = nb >= 128 ? 512 : (nb >= 32 ? 256 : 64);
-  potrf_kernel<T><<<k, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, kvec, nb, in_smem);
-  return (int)cudaGetLastError();
+  const size_t smem = fac_potrf_smem<T>(nb, true);
+  if (smem <= (size_t)kMaxSmem)
+    return launch_as<T, true>(in, out, kvec, k, nb, smem, stream);
+  return launch_as<T, false>(in, out, kvec, k, nb,
+                             fac_potrf_smem<T>(nb, false), stream);
 }
 
 }  // namespace

@@ -13,15 +13,15 @@
 //              solved backwards.
 //
 // Bound: bytes at small nrhs (each tile is read once for 2*nb*kv*nrhs
-// operations); a dependent chain of kv steps per tile.  Design: one thread
-// block per (tile, chunk of up to 64 rhs columns); the tile is copied once,
-// coalesced, into shared memory with padded rows (so both row and column
-// walks are conflict free) when it fits beside the rhs chunk, otherwise it
-// is read from global memory.  The rhs chunk lives in shared memory and
-// turns into y in place; the rectangular part (rows >= kv) is one pass
-// without barriers, the triangle takes two barriers per column.  The solve
-// itself is left_solve_tile in solve_body.cuh (the solve stream kernel,
-// mega_solve.cu, has its own blocked substitution).
+// operations), but a launch lasts the latency of its tiles' chains of
+// dependent steps.  Design: one thread block per (tile, chunk of up to 64
+// rhs columns); the block stages the tile's trapezoid and its chunk in
+// shared memory by asynchronous 16-byte copies, waits once, and solves in
+// panels of 32 columns: a warp's registers for the panel's diagonal block
+// (reciprocal pivots, shuffles), a register-tiled product for the rows
+// below it, two block barriers a panel.  The body is left_solve_tile in
+// solve_body.cuh, K5's own (the solve stream kernel, mega_solve.cu, has
+// its own blocked substitution).
 #include "solve_body.cuh"
 
 namespace {
@@ -29,17 +29,17 @@ namespace {
 using namespace spllt;
 
 template <typename T>
-__global__ void left_solve_kernel(const T* __restrict__ tiles,
-                                  const T* __restrict__ z, T* __restrict__ y,
-                                  const int* __restrict__ kvec, int nb,
-                                  int nrhs, int transpose, int in_smem) {
+__global__ void __launch_bounds__(kSolNT)
+    left_solve_kernel(const T* __restrict__ tiles, const T* __restrict__ z,
+                      T* __restrict__ y, const int* __restrict__ kvec,
+                      int nb, int nrhs, int transpose, int in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c0 = blockIdx.y * kRhsChunk;
   const size_t zoff = (size_t)blockIdx.x * nb * nrhs + c0;
   left_solve_tile<T>(tiles + (size_t)blockIdx.x * nb * nb, z + zoff, y + zoff,
                      kvec[blockIdx.x], nb,
                      min(kRhsChunk, nrhs - c0), nrhs, min(kRhsChunk, nrhs),
-                     transpose, in_smem, smem_raw, threadIdx.x, blockDim.x);
+                     transpose, in_smem, smem_raw, threadIdx.x);
 }
 
 template <typename T>
@@ -57,8 +57,7 @@ int launch(const void* tiles, const void* z, void* y, const int* kvec, int k,
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(k, (nrhs + kRhsChunk - 1) / kRhsChunk);
-  int threads = nb >= 64 ? 256 : 64;
-  left_solve_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
+  left_solve_kernel<T><<<grid, kSolNT, smem, (cudaStream_t)stream>>>(
       (const T*)tiles, (const T*)z, (T*)y, kvec, nb, nrhs, transpose,
       in_smem);
   return (int)cudaGetLastError();

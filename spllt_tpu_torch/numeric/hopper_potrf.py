@@ -8,19 +8,20 @@ caller's not-positive-definite guard.
 
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/pallas_potrf.py``
 (``pallas_potrf_batch`` / ``potrf_tiles_body``); the source is
-``csrc/potrf.cu``.  On the card the leaf levels (thousands of tiles with a
-handful of factor columns) are bound by bytes: a tile is written once and
-only the lower trapezoid of its columns < ``kv`` is read.  The top levels
-(few tiles, ``kv`` = nb) are held back by the chain of ``kv`` dependent
-column steps.  One thread block per tile keeps the tile in shared memory
-(and works in place on the output tile in global memory / L2 when nb·nb
-elements exceed what a block may use, as at the default nb = 256 in
-float32); the columns go in panels of 8 to shorten the chain: one warp
-factors the 8×8 diagonal block with shuffles, every row below solves its 8
-panel entries in registers, then all warps apply the rank-8 update — three
-barriers per 8 columns.  A failed pivot turns the whole tile into NaN.  The
-batch supplies the parallelism across the SMs.  float32 and float64 share
-one template.
+``csrc/potrf.cu`` with its body ``csrc/potrf_body.cuh``.  On the card the
+leaf levels (thousands of tiles with a handful of factor columns) are bound
+by bytes: a tile is written once and only the lower trapezoid of its
+columns < ``kv`` is read.  The top levels (few tiles, ``kv`` = nb) are held
+back by the latency of the chain of ``kv`` dependent columns.  One thread
+block per tile, built from the pieces of the factor stream kernel's POTRF
+item (``csrc/mega_factor_body.cuh``): the trapezoid staged in shared memory
+by 16-byte ``cp.async.cg`` (in place on the output tile in global memory /
+L2 when nb·nb elements exceed what a block may use, as at nb = 256 in
+float32), panels of 16 columns — one warp factors the diagonal block in
+registers with ``rsqrt``, one thread a row solves the rows below, and a
+register-tiled rank-16 product updates the trapezoid right of the panel.
+A failed pivot turns the whole tile into NaN.  The batch supplies the
+parallelism across the SMs.  float32 and float64 share one template.
 """
 
 from __future__ import annotations

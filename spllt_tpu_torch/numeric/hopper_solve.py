@@ -10,12 +10,14 @@ passing; in the transposed sweep those rhs rows pass through unchanged.
 
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/pallas_solve.py``
 (``pallas_left_solve`` / ``solve_tiles_body``); the source is
-``csrc/solve.cu``.  Bound by bytes at small nrhs (a tile is read once for
-2·nb·kv·nrhs operations) and by the chain of ``kv`` dependent steps: one
-thread block per (tile, chunk of ≤ 64 rhs columns) copies the tile once,
-coalesced, into padded shared memory, keeps the rhs chunk there too, does
-the rectangular rows >= kv in one barrier-free pass and the triangle with
-two barriers per column.
+``csrc/solve.cu`` with its body ``csrc/solve_body.cuh``.  Bound by bytes
+at small nrhs (a tile is read once for 2·nb·kv·nrhs operations), but a
+launch lasts the latency of its tiles' chains of dependent steps.  One
+thread block per (tile, chunk of ≤ 64 rhs columns) stages the tile's
+trapezoid and the chunk in shared memory by asynchronous 16-byte copies
+and solves in panels of 32 columns: the panel's diagonal block in one
+warp's registers (reciprocal pivots, shuffles), then a register-tiled
+product for the rows below (above) it — two block barriers a panel.
 """
 
 from __future__ import annotations
