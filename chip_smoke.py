@@ -13,7 +13,9 @@
     python3 chip_smoke.py --scan-only     # only steps 2 and 5 for the level
                                           # path: its four kernels per
                                           # launch, their device share and
-                                          # single-tile latencies
+                                          # single-tile latencies (add
+                                          # --levels-out FILE for every
+                                          # per-level row)
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -29,12 +31,14 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      one kernel, each solve sweep as one kernel) the same way, with the same
      checks, and requires the stream executors to be the ones that ran;
   4. holds each kernel against its plain PyTorch version on the card: the
-     four batched kernels on edge-case batches (the potrf and left-solve
-     kernels also at the edges of their panels and chunks: kv 0, 1, 15-17,
-     31-33, 127 and nb, nb 8, 48, 128 and 256, nrhs 1, 4, 63-65 and 130,
-     float32 and float64, failed pivots at columns 0 and 17) and at every
-     shape the level path gave them (one comparison per level of the
-     plan), the two stream
+     four batched kernels on edge-case batches (the potrf, trsm and
+     left-solve kernels also at the edges of their panels, row bands and
+     chunks: kv 0, 1, 15-17, 31-33, 127 and nb, nb 8, 48, 128 and 256, one
+     pair and 300, nrhs 1, 4, 63-65 and 130, float32 and float64, failed
+     pivots at columns 0 and 17; the update kernel on hand-made tables at
+     the edges of its packed entries, stages and sub-tiles, nb 48, 128 and
+     256, two launches bit for bit equal) and at every shape the level path
+     gave them (one comparison per level of the plan), the two stream
      kernels on the poisson3d(32) pool (also against the level executor's
      factor), per solve direction at nrhs 1, 4 and 64, and on edge streams
      run with 1, 3 and all blocks (the solve stream's at nrhs 1 to 128 with
@@ -49,8 +53,10 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      than blocks and the others, each kind beside its bound) and the factor
      stream's single items and grid barrier (``factor_item_times``);
   5. repeats both main paths at poisson3d(64) (unless ``--no-large``),
-     holding the update kernel against its plain version at every level,
-     the factor stream kernel against its plain version and the level
+     holding the four level kernels against their plain versions at every
+     level (timed as at poisson3d(32), with the library call beside K2 and
+     K5: the ``large`` part of their rows in the ``kernels`` line), the
+     factor stream kernel against its plain version and the level
      executor's factor, and the solve stream kernel against its plain
      version per direction at nrhs 1, 4 and 64, with the per-run times of
      both stream kernels.
@@ -173,35 +179,49 @@ def live_blocks(mask: torch.Tensor, g: int) -> torch.Tensor:
     return m.view(k, -1, g).amax(2).sum(1).to(torch.int64) * g
 
 
-def update_level_work(tasks: dict, nb: int) -> dict:
+def exec_granularity(stream: bool):
+    """How the update body of K3 (``stream=False``) or of K4's UPD runs
+    rounds its arithmetic: (compact, rows, columns, contraction).  K3 since
+    PR 9 counts the live rows and columns themselves (compact), K4's body
+    the aligned blocks of the tile that hold a live one.  An older tree
+    states one granularity for both in ``hopper_update``."""
+    from spllt_tpu_torch.numeric import hopper_update as hu
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    if stream and hasattr(mk, "UPD_EXEC_ROWS"):
+        return False, mk.UPD_EXEC_ROWS, mk.UPD_EXEC_COLS, mk.UPD_EXEC_SLAB
+    return (getattr(hu, "EXEC_COMPACT", False) and not stream,
+            hu.EXEC_ROWS, hu.EXEC_COLS, hu.EXEC_SLAB)
+
+
+def update_level_work(tasks: dict, nb: int, stream: bool = False) -> dict:
     """What one level's update micro-tasks need, from the executor's own
     tables: elements gathered (unmasked rows and columns, trimmed to the
     source's width), operations of the unmasked rows and columns with the
     full and with the trimmed contraction, of what the update body executes
-    (the aligned blocks of ``EXEC_ROWS`` rows and ``EXEC_COLS`` columns
-    that hold a live one, the contraction in slabs of ``EXEC_SLAB``, as
-    ``hopper_update`` states them), and of a dense nb x nb x nb product per
-    task with and without the trim."""
-    from spllt_tpu_torch.numeric.hopper_update import (EXEC_COLS, EXEC_ROWS,
-                                                       EXEC_SLAB)
-
+    (:func:`exec_granularity`: the live rows and columns rounded up, or the
+    aligned blocks that hold a live one, and the contraction rounded up),
+    and of a dense nb x nb x nb product per task with and without the
+    trim."""
+    compact, er, ec, es = exec_granularity(stream)
     ar = torch.arange(nb, device=tasks["relr"].device)
     mr = tasks["relr"] >= 0
     mc = (tasks["relc"] >= 0) & (ar[None, :] < tasks["blkn"][:, None])
     vr, vc = mr.sum(1).to(torch.int64), mc.sum(1).to(torch.int64)
     kn = tasks["srcn"].to(torch.int64).clamp(max=nb)
     up = lambda x, g: (x + g - 1) // g * g
+    if compact:
+        executed = 2 * up(vr, er) * up(vc, ec) * up(kn, es)
+    else:
+        executed = 2 * live_blocks(mr, er) * live_blocks(mc, ec) * up(kn, es)
     return {"tasks": int(kn.numel()),
             "segments": int(tasks["seg_ptr"].numel()) - 1,
             "gathered": int(((vr + vc) * kn).sum()),
             "unmasked_full_k": int((2 * vr * vc * nb).sum()),
             "unmasked_trimmed_k": int((2 * vr * vc * kn).sum()),
-            "executed": int((2 * live_blocks(mr, EXEC_ROWS)
-                             * live_blocks(mc, EXEC_COLS)
-                             * up(kn, EXEC_SLAB)).sum()),
+            "executed": int(executed.sum()),
             "dense_full_k": int(kn.numel()) * 2 * nb ** 3,
-            "dense_trimmed_k_slabs":
-                int((2 * nb * nb * up(kn, EXEC_SLAB)).sum())}
+            "dense_trimmed_k_slabs": int((2 * nb * nb * up(kn, es)).sum())}
 
 
 def upd_run_tasks(stream: dict, r: int) -> dict:
@@ -224,13 +244,14 @@ def update_work(fex, nb: int) -> dict:
     syrk products)."""
     keys = ("unmasked_full_k", "unmasked_trimmed_k", "executed",
             "dense_full_k", "dense_trimmed_k_slabs")
-    if hasattr(fex, "levels"):
+    stream = not hasattr(fex, "levels")
+    if not stream:
         tabs = [lv["upd"] for lv in fex.levels if "upd" in lv]
     else:
         kinds = fex.stream["host"]["run_kind"]
         tabs = [upd_run_tasks(fex.stream, r) for r in range(len(kinds))
                 if kinds[r] == 0]
-    levels = [update_level_work(t, nb) for t in tabs]
+    levels = [update_level_work(t, nb, stream) for t in tabs]
     return {k: sum(w[k] for w in levels) / 1e9 for k in keys}
 
 
@@ -247,37 +268,6 @@ def update_rates(gflop: dict, ms: float, device_ms=None) -> dict:
     if device_ms is not None:
         out["device_ms"] = device_ms
     return out
-
-
-def update_levels_check(num, fex) -> dict:
-    """The update kernel at every level of one factorization of the level
-    executor ``fex``: held against its plain version on the factor pool of
-    ``num`` (float32: 1e-5 of the size of the update), then timed on a copy
-    of it (the values do not change the work).  Returns the summed
-    milliseconds (as the host issues the launches, and on the device
-    alone) and the largest error."""
-    from spllt_tpu_torch.numeric.hopper_update import (apply_updates,
-                                                       apply_updates_plain)
-
-    base = num.pool.view(-1, fex.nb)
-    work = base.clone()
-    total, dev, worst, levels = 0.0, 0.0, 0.0, 0
-    for lv in fex.levels:
-        if "upd" not in lv:
-            continue
-        got = apply_updates(base.clone(), lv["upd"])
-        ref = apply_updates_plain(base.clone(), lv["upd"])
-        torch.cuda.synchronize()
-        rel = rel_err(got, ref, base)[1]
-        require(rel <= 1e-5, f"update at level {levels}: rel err {rel}")
-        worst = max(worst, rel)
-        del got, ref
-        total += time_ms(lambda: apply_updates(work, lv["upd"]), 3)
-        dev += time_device_ms(lambda: apply_updates(work, lv["upd"]), 3)
-        levels += 1
-    del work
-    return dict(ms=total, device_ms=dev, levels_checked=levels,
-                max_rel_err=worst)
 
 
 def main_path(m: int, card: str, full_checks: bool, schedule: str):
@@ -535,6 +525,13 @@ class Acc:
             self.to += to
 
 
+# the fields of a level kernel's row that its 64³ run adds under "large"
+LARGE_KEYS = ("launches", "max_abs_err", "rel_err", "ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms", "device_ms",
+              "plain_device_ms", "library_device_ms", "launches_timed",
+              "shape", "bytes", "flops")
+
+
 def kernel_row(name, src_key, replaces, acc, per, shape, launches, tol):
     from spllt_tpu_torch.numeric._build import KERNEL_SOURCES
 
@@ -635,11 +632,21 @@ def kernel_phase(num, fex, sex, nrhs, launches):
     del lfac, dst
 
     # ------- every shape the main path gave each kernel (f32, nb=128) ------- #
-    # One comparison and one timing per level of the plan; a row sums the
-    # launches of ONE factorization (potrf, trsm, update) or ONE forward +
-    # backward sweep (left_solve).  The bound of a row is the sum of its
-    # launches' bounds.
     _, levels = scan_level_times(num, fex, sex, (nrhs,), plain_times=True)
+    out = level_kernel_rows(levels, fex, nrhs, launches, TOL32)
+    edge_out = {k: {"max_abs": v[0], "rel": v[1]} for k, v in edge.items()}
+    edge_out["trsm_f32_nb256_64_full_pairs"] = nb256
+    return out, edge_out
+
+
+def level_kernel_rows(levels, fex, nrhs, launches, tol):
+    """The ``kernels`` rows of K1, K2, K3 and K5 from the per-level rows of
+    :func:`scan_level_times`: one comparison and one timing per level of
+    the plan; a row sums the launches of ONE factorization (potrf, trsm,
+    update) or ONE forward + backward sweep (left_solve), its bound the sum
+    of its launches' bounds."""
+    nb = fex.nb
+    out = []
     for name, src_key, replaces, per, keys in (
             ("potrf", "potrf", "pallas_potrf.py:167", "factorization",
              ("potrf",)),
@@ -670,10 +677,8 @@ def kernel_phase(num, fex, sex, nrhs, launches):
                      + (f", z [K,{nb},{nrhs}]" if name == "left_solve" else "")
                      + f", K up to {acc.kmax}")
         out.append(kernel_row(name, src_key, "spllt_tpu/numeric/" + replaces,
-                              acc, per, shape, launches, TOL32))
-    edge_out = {k: {"max_abs": v[0], "rel": v[1]} for k, v in edge.items()}
-    edge_out["trsm_f32_nb256_64_full_pairs"] = nb256
-    return out, edge_out
+                              acc, per, shape, launches, tol))
+    return out
 
 
 LEVEL_EDGE_KV = (0, 1, 15, 16, 17, 31, 32, 33, 127)   # and nb
@@ -681,14 +686,21 @@ LEVEL_EDGE_NRHS = (1, 4, 63, 64, 65, 130)
 
 
 def level_edge_batches() -> dict:
-    """K1 and K5 at the edges of their panels and chunks: nb 8, 48, 128 and
-    256, float32 and float64, one batch of tiles at kv 0, 1, 15, 16, 17,
-    31, 32, 33, 127 and nb (those <= nb); K1 against its plain version, K5
+    """K1, K2 and K5 at the edges of their panels, bands and chunks: nb 8,
+    48, 128 and 256, float32 and float64, one batch of tiles at kv 0, 1, 15,
+    16, 17, 31, 32, 33, 127 and nb (those <= nb); K1 against its plain
+    version; K2 on K1's plain factor as that batch, as one pair (its
+    narrowest bands) and as 300 pairs (more than 264 blocks: its widest
+    bands), the one pair bit for bit equal to the same pair in the 300; K5
     on K1's plain factor at nrhs 1, 4, 63, 64, 65 and 130, each direction;
     tiles whose pivot fails at column 0 and at column 17 must come back NaN
-    everywhere from both routes.  Within 1e-5 (float32) and 1e-11
-    (float64) of max|ref|.  Returns the worst error by kernel and dtype."""
-    from spllt_tpu_torch.numeric import hopper_potrf, hopper_solve
+    everywhere from both routes; K3 on ``compact_edge_tasks`` at nb 48, 128
+    and 256, two launches bit for bit equal.  Within 1e-5 (float32) and
+    1e-11 (float64) of max|ref| (K3: of the size of the update).  Returns
+    the worst error by kernel and dtype."""
+    from spllt_tpu_torch.numeric import (hopper_potrf, hopper_solve,
+                                         hopper_update)
+    from spllt_tpu_torch.numeric.hopper_trsm import trsm, trsm_plain
 
     rng = np.random.default_rng(SEED + 10)
     tols = {torch.float32: 1e-5, torch.float64: 1e-11}
@@ -709,6 +721,22 @@ def level_edge_batches() -> dict:
             tiles = spd_tiles(rng, kvs, nb, dtype)
             lfac = hopper_potrf.potrf_plain(tiles, kv)
             held(f"potrf_nb{nb}", hopper_potrf.potrf(tiles, kv), lfac, dtype)
+            many = torch.arange(300, device="cuda") % len(kvs)
+            lm, km = lfac[many], kv[many]
+            dm = torch.as_tensor(rng.standard_normal((300, nb, nb)),
+                                 dtype=dtype, device="cuda")
+            for sl in (slice(0, len(kvs)), slice(len(kvs) - 1, len(kvs)),
+                       slice(0, 300)):
+                held(f"trsm_nb{nb}_{sl.stop - sl.start}pairs",
+                     trsm(lm[sl], dm[sl], km[sl]),
+                     trsm_plain(lm[sl], dm[sl], km[sl]), dtype)
+            last = len(kvs) - 1
+            require(torch.equal(trsm(lm[last:last + 1], dm[last:last + 1],
+                                     km[last:last + 1])[0],
+                                trsm(lm, dm, km)[last]),
+                    f"trsm nb={nb} {dtype}: one pair alone and the same pair "
+                    f"among 300 differ")
+            del lm, dm
             for r_ in LEVEL_EDGE_NRHS:
                 z = torch.as_tensor(rng.standard_normal((len(kvs), nb, r_)),
                                     dtype=dtype, device="cuda")
@@ -728,6 +756,27 @@ def level_edge_batches() -> dict:
                             f"potrf nb={nb} {dtype}: a pivot failing at "
                             f"column {col} did not make the tile NaN")
                 batches += 1
+    # K3 on hand-made tables at the edges of its packed entries, stages and
+    # sub-tiles (skipped against an older tree, which has no such tables)
+    compact = getattr(hopper_update, "compact_edge_tasks", None)
+    for dtype in (torch.float32, torch.float64) if compact else ():
+        for nb in (48, 128, 256):
+            tasks, rows_ = compact(nb, SEED + nb)
+            t = hopper_update.tasks_to_device(tasks, nb, rows_, "cuda")
+            pool = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                                   dtype=dtype, device="cuda")
+            got = hopper_update.apply_updates(pool.clone(), t)
+            again = hopper_update.apply_updates(pool.clone(), t)
+            ref = hopper_update.apply_updates_plain(pool.clone(), t)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"update edge tasks nb={nb} "
+                                             f"{dtype}: two launches differ")
+            rel = rel_err(got, ref, pool)[1]
+            require(rel <= tols[dtype], f"update edge tasks nb={nb} {dtype}: "
+                                        f"rel err {rel}")
+            key = f"update_{str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), rel)
+            batches += 1
     return dict(batches=batches, worst_rel=worst)
 
 
@@ -777,6 +826,14 @@ def update_synthetic() -> dict:
 # --------------------------------------------------------------------- #
 # the stream kernels against their plain versions
 # --------------------------------------------------------------------- #
+def time_device_prepared_ms(prepare, fn, reps: int) -> float:
+    """Milliseconds of ``fn`` on the device alone where each call needs
+    ``prepare`` first: the pairs queued back to back behind a sleep kernel
+    (:func:`time_device_ms`), less ``prepare`` alone queued the same way."""
+    return time_device_ms(lambda: (prepare(), fn()), reps) - \
+        time_device_ms(prepare, reps)
+
+
 def time_prepared_ms(prepare, fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` alone, with ``prepare`` run before every
     call outside the timed region (CUDA events, after one warm-up)."""
@@ -814,7 +871,7 @@ def factor_stream_work(stream: dict, nb: int, esz: int):
         t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
         kvs = aux[t0:t1]
         if kind == 0:
-            w = update_level_work(upd_run_tasks(stream, r), nb)
+            w = update_level_work(upd_run_tasks(stream, r), nb, True)
             out.append((0, w["segments"], *update_work_bound(w, nb, esz)))
         elif kind == 1:
             out.append((1, t1 - t0, *potrf_work(kvs, nb, esz)))
@@ -1032,6 +1089,9 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     acc.ms = time_prepared_ms(
         lambda: buf.copy_(pool0),
         lambda: megakernel.mega_factorize(buf.view(-1, nb), fex.stream), 3)
+    acc.dms = time_device_prepared_ms(
+        lambda: buf.copy_(pool0),
+        lambda: megakernel.mega_factorize(buf.view(-1, nb), fex.stream), 3)
     acc.pms = time_prepared_ms(
         lambda: buf.copy_(pool0),
         lambda: megakernel.mega_factorize_plain(buf.view(-1, nb),
@@ -1099,6 +1159,9 @@ def mega_solve_check(num, sex, nrhs, rng, tol: float = 1e-5):
             ms = time_prepared_ms(
                 lambda: buf.copy_(w0),
                 lambda: solve_mega.mega_solve(poolf, buf, st_d), 3)
+            dms = time_device_prepared_ms(
+                lambda: buf.copy_(w0),
+                lambda: solve_mega.mega_solve(poolf, buf, st_d), 3)
             pms = time_prepared_ms(
                 lambda: buf.copy_(w0),
                 lambda: solve_mega.mega_solve_plain(poolf, buf, st_d), 1)
@@ -1106,7 +1169,7 @@ def mega_solve_check(num, sex, nrhs, rng, tol: float = 1e-5):
             wacc = Acc()
             add_bound(wacc, work)
             per_nrhs[f"{tag}_nrhs{r_}"] = dict(
-                max_abs=mabs, rel=rel, ms=ms, plain_ms=pms,
+                max_abs=mabs, rel=rel, ms=ms, device_ms=dms, plain_ms=pms,
                 bound_ms=(wacc.tb + wacc.to) * 1e3,
                 runs=len(st_d["host"]["run_kind"]),
                 tasks=int(st_d["dst"].shape[0]),
@@ -1114,6 +1177,7 @@ def mega_solve_check(num, sex, nrhs, rng, tol: float = 1e-5):
             if r_ == nrhs:          # the row: one forward + backward sweep
                 acc.n += 1
                 acc.ms += ms
+                acc.dms = (acc.dms or 0.0) + dms
                 acc.pms += pms
                 acc.mabs, acc.rel = max(acc.mabs, mabs), max(acc.rel, rel)
                 add_bound(acc, work)
@@ -1520,7 +1584,8 @@ def solve_stream_phase(num, sex, rec, card, run_times: bool = True) -> dict:
     plain version at nrhs 1, 4 and 64 and timed, and its per-run times."""
     rng = np.random.default_rng(SEED + 6)
     per_nrhs, acc = mega_solve_check(num, sex, rec["nrhs"], rng)
-    row = dict(ms=acc.ms, plain_ms=acc.pms, bound_ms=(acc.tb + acc.to) * 1e3,
+    row = dict(ms=acc.ms, device_ms=acc.dms, plain_ms=acc.pms,
+               bound_ms=(acc.tb + acc.to) * 1e3,
                bound_by="bytes" if acc.tb >= acc.to else "operations",
                max_abs_err=acc.mabs, rel_err=acc.rel,
                launches=rec["launches"]["mega_solve"],
@@ -1556,19 +1621,68 @@ def level_launch(check, run, items, nbytes, flops, plain=None,
     return out
 
 
+UPD_KEYS = ("dst", "lor", "loc", "blkn", "srcn", "relr", "relc")
+
+
+def segment_tasks(t: dict, s: int, nb: int, pool_rows: int) -> dict:
+    """Segment ``s`` of one level's update tables alone, built by the
+    package's own ``tasks_to_device`` from the JAX-format fields (so the
+    same code times any tree's update kernel)."""
+    from spllt_tpu_torch.numeric.hopper_update import tasks_to_device
+
+    sp = t["seg_ptr"].cpu().numpy()
+    a, b = int(sp[s]), int(sp[s + 1])
+    return tasks_to_device({k: t[k][a:b].cpu().numpy() for k in UPD_KEYS},
+                           nb, pool_rows, "cuda")
+
+
+def table_bytes(t: dict) -> int:
+    """Device bytes of one level's update tables."""
+    return sum(v.numel() * v.element_size() for v in t.values()
+               if isinstance(v, torch.Tensor))
+
+
+def update_level_extra(t: dict, w: dict, work, nb: int,
+                       pool_rows: int) -> dict:
+    """K3's per-level shape (tasks per segment, live rows and columns,
+    srcn, useful and executed GFLOP, table bytes) and the device time of
+    the level's longest segment launched alone."""
+    from spllt_tpu_torch.numeric.hopper_update import apply_updates
+
+    seg = np.diff(t["seg_ptr"].cpu().numpy())
+    ar = torch.arange(nb, device="cuda")
+    vr = (t["relr"] >= 0).sum(1).double()
+    vc = ((t["relc"] >= 0) & (ar[None, :] < t["blkn"][:, None])).sum(1)
+    one = segment_tasks(t, int(seg.argmax()), nb, pool_rows)
+    return dict(seg_max=int(seg.max()), seg_mean=float(seg.mean()),
+                live_rows_mean=float(vr.mean()),
+                live_cols_mean=float(vc.double().mean()),
+                srcn_mean=float(t["srcn"].double().mean()),
+                useful_gflop=w["unmasked_trimmed_k"] / 1e9,
+                executed_gflop=w["executed"] / 1e9,
+                table_bytes=table_bytes(t),
+                longest_seg_device_us=1e3 * time_device_ms(
+                    lambda: apply_updates(work, one), 5))
+
+
 def level_summary(rows: list, sms: int) -> dict:
     """Sums over the launches of one kernel (one factorization, or one
     sweep direction at one nrhs): ms as the host issues the launches, ms on
     the device alone, bound ms, and the same over the launches with fewer
     work items than the card has SMs ("narrow") and the others ("wide")."""
     def part(rs):
-        return dict(launches=len(rs),
-                    ms=sum(r["us"] for r in rs) / 1e3,
-                    device_ms=sum(r["device_us"] for r in rs) / 1e3,
-                    bound_ms=sum(r["bound_us"] for r in rs) / 1e3,
-                    device_us_per_launch=(
-                        sum(r["device_us"] for r in rs) / len(rs)
-                        if rs else None))
+        out = dict(launches=len(rs),
+                   ms=sum(r["us"] for r in rs) / 1e3,
+                   device_ms=sum(r["device_us"] for r in rs) / 1e3,
+                   bound_ms=sum(r["bound_us"] for r in rs) / 1e3,
+                   device_us_per_launch=(
+                       sum(r["device_us"] for r in rs) / len(rs)
+                       if rs else None))
+        if rs and "library_us" in rs[0]:
+            out.update(library_ms=sum(r["library_us"] for r in rs) / 1e3,
+                       library_device_ms=sum(r["library_device_us"]
+                                             for r in rs) / 1e3)
+        return out
     return dict(**part(rows), max_rel=max((r["rel"] for r in rows),
                                           default=0.0),
                 narrow=part([r for r in rows if r["items"] < sms]),
@@ -1576,7 +1690,7 @@ def level_summary(rows: list, sms: int) -> dict:
 
 
 def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
-                     plain_times: bool = False):
+                     plain_times: bool = False, library_times: bool = False):
     """K1, K2, K3 and K5 at every level shape the level main path gave
     them, each launch held against its plain version (float32, 1e-5 of
     max|ref|; the update: of the size of the update) and timed as the host
@@ -1584,10 +1698,13 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
     per sweep direction at each of ``nrhs_list``.  K1 takes synthetic SPD
     tiles with each level's kv, K2 and K5 the real factor's tiles, K3 each
     level's own task tables on a random pool of the real pool's shape.
-    ``plain_times``: also the times of the plain versions and, for
-    K2 and K5, of one ``torch.linalg.solve_triangular`` call on the
-    identity-padded tiles.  Returns (summary by kernel, per-launch rows by
-    kernel)."""
+    K3's rows also hold :func:`update_level_extra` (tasks per segment,
+    live rows, GFLOP, table bytes, the longest segment alone); every row
+    its ``level`` (1-based, as in the plan).  ``plain_times``: also the
+    times of the plain versions and, for K2 and K5 (also with
+    ``library_times``), of one ``torch.linalg.solve_triangular`` call on
+    the identity-padded tiles.  Returns (summary by kernel, per-launch rows
+    by kernel)."""
     from spllt_tpu_torch.numeric import (hopper_potrf, hopper_solve,
                                          hopper_trsm, hopper_update)
 
@@ -1598,6 +1715,7 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
     ar = torch.arange(nb, device="cuda")
     eye = torch.eye(nb, dtype=torch.float32, device="cuda")
     opt = lambda fn: fn if plain_times else None
+    lib = lambda fn: fn if plain_times or library_times else None
 
     def checked(got, ref, base=None):
         torch.cuda.synchronize()
@@ -1605,6 +1723,15 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
         require(rel <= tol, f"level kernel differs from its plain version: "
                             f"rel {rel} > {tol}")
         return mabs, rel
+
+    def repeated(kernel, pool, t):
+        """The kernel's update of a copy of ``pool``, required to equal a
+        second launch's bit for bit."""
+        got, again = kernel(pool.clone(), t), kernel(pool.clone(), t)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), "update: two launches on the same "
+                                         "pool gave different results")
+        return got
 
     def padded(tl, kv_t):
         """The tiles with an identity on the diagonal of rows >= kv."""
@@ -1614,18 +1741,22 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
         rng.standard_normal((fex.pool_rows, nb), dtype=np.float32),
         device="cuda")
     work = poolf.clone()
-    for lv in fex.levels:
+    for li, lv in enumerate(fex.levels, 1):
         if "upd" in lv:
             t = lv["upd"]
             w = update_level_work(t, nb)
-            levels["update"].append(dict(level_launch(
-                lambda: checked(hopper_update.apply_updates(poolf.clone(), t),
+            row = level_launch(
+                lambda: checked(repeated(hopper_update.apply_updates,
+                                         poolf, t),
                                 hopper_update.apply_updates_plain(
                                     poolf.clone(), t), poolf),
                 lambda: hopper_update.apply_updates(work, t),
                 w["segments"], *update_work_bound(w, nb, esz),
-                plain=opt(lambda: hopper_update.apply_updates_plain(work, t))),
-                tasks=w["tasks"]))
+                plain=opt(lambda: hopper_update.apply_updates_plain(work, t)))
+            row.update(level=li, tasks=w["tasks"],
+                       us_per_task=row["device_us"] / w["tasks"],
+                       **update_level_extra(t, w, work, nb, fex.pool_rows))
+            levels["update"].append(row)
         if "potrf" in lv:
             kv_t = lv["potrf"][1]
             kvs = kv_t.cpu().numpy().astype(np.int64)
@@ -1636,7 +1767,7 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
                 lambda: hopper_potrf.potrf(tiles, kv_t),
                 len(kvs), *potrf_work(kvs, nb, esz),
                 plain=opt(lambda: hopper_potrf.potrf_plain(tiles, kv_t))),
-                kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
+                level=li, kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
         if "trsm" in lv:
             dg, _, kv_t = lv["trsm"]
             kvs = kv_t.cpu().numpy().astype(np.int64)
@@ -1652,15 +1783,15 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
                 lambda: hopper_trsm.trsm(lt, dst, kv_t),
                 len(kvs), *trsm_work(kvs, nb, esz),
                 plain=opt(lambda: hopper_trsm.trsm_plain(lt, dst, kv_t)),
-                library=opt(lambda: torch.linalg.solve_triangular(
+                library=lib(lambda: torch.linalg.solve_triangular(
                     lpad_t, dst, upper=True, left=False))),
-                kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
+                level=li, kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
     del poolf, work
     for r_ in nrhs_list:
         for lvs, tr, tag in ((sex._fwd_levels, False, "fwd"),
                              (sex._bwd_levels, True, "bwd")):
             rows = levels[f"left_solve_{tag}_nrhs{r_}"] = []
-            for lv in lvs:
+            for li, lv in enumerate(lvs, 1):
                 if "sol" not in lv:
                     continue
                 kv_t = lv["sol"]["kv"]
@@ -1685,10 +1816,22 @@ def scan_level_times(num, fex, sex, nrhs_list=(1, 4, 64),
                          + 2 * r_ * (nb - kvs) * kvs).sum()),
                     plain=opt(lambda: hopper_solve.left_solve_plain(
                         tl, z, kv_t, tr)),
-                    library=opt(lambda: torch.linalg.solve_triangular(
+                    library=lib(lambda: torch.linalg.solve_triangular(
                         mpad, z, upper=tr))),
-                    kv_max=int(kvs.max()), kv_mean=float(kvs.mean())))
-    return {k: level_summary(v, sms) for k, v in levels.items()}, levels
+                    level=li, kv_max=int(kvs.max()),
+                    kv_mean=float(kvs.mean())))
+    summary = {k: level_summary(v, sms) for k, v in levels.items()}
+    upd = levels["update"]
+    dev_ms = summary["update"]["device_ms"]
+    summary["update"].update(
+        tasks=sum(r["tasks"] for r in upd),
+        segments=sum(r["items"] for r in upd),
+        useful_gflop=sum(r["useful_gflop"] for r in upd),
+        executed_gflop=sum(r["executed_gflop"] for r in upd),
+        useful_device_tflops=sum(r["useful_gflop"] for r in upd) / dev_ms,
+        executed_device_tflops=sum(r["executed_gflop"] for r in upd) / dev_ms,
+        table_bytes=sum(r["table_bytes"] for r in upd))
+    return summary, levels
 
 
 def level_item_times(nb: int = 128, reps: int = 20) -> dict:
@@ -1724,21 +1867,33 @@ def level_item_times(nb: int = 128, reps: int = 20) -> dict:
     return dict(dtype="float32", nb=nb, sms=sms, **out)
 
 
-def scan_only(card: str, large: bool, t_start: float) -> int:
+def scan_only(card: str, large: bool, t_start: float,
+              levels_out=None) -> int:
     """``--scan-only``: the level main path (``schedule='scan'``) at
     poisson3d(32) and (64); K1, K2, K3 and K5 at every level shape it gave
-    them (:func:`scan_level_times`, K5 per direction at nrhs 1, 4 and 64),
-    the device time of one factorization and one sweep against their
-    CUDA-event times (how much of each is the host's level loop), and the
-    single-tile latencies of :func:`level_item_times`.  Runs against any tree
-    whose level kernels have the same wrappers (to compare two trees in one
+    them (:func:`scan_level_times`, K5 per direction at nrhs 1, 4 and 64,
+    K2 and K5 beside one library call), the device time of one
+    factorization and one sweep against their CUDA-event times (how much
+    of each is the host's level loop), and the single-tile latencies of
+    :func:`level_item_times`.  ``levels_out``: a file that receives every
+    per-level row, one JSON object a line.  Runs against any tree whose
+    level kernels have the same wrappers (to compare two trees in one
     call)."""
+    if levels_out:
+        open(levels_out, "w").close()
     for m in (32, 64) if large else (32,):
         rec, num, fex, sex = main_path(m, card, False, "scan")
         emit("main_path", **rec)
-        summary, _ = scan_level_times(num, fex, sex)
+        summary, levels = scan_level_times(num, fex, sex, library_times=True)
         emit("scan_level_times", card=card, matrix=rec["matrix"],
              launches=rec["launches"], **summary)
+        if levels_out:
+            with open(levels_out, "a") as f:
+                for kernel, rows in levels.items():
+                    for r in rows:
+                        f.write(json.dumps(dict(matrix=rec["matrix"],
+                                                kernel=kernel, card=card,
+                                                **r)) + "\n")
         prof, _ = profile_main_path(num, fex, sex, rec["nrhs"])
         emit("scan_device_share", card=card, matrix=rec["matrix"],
              factor_ms=rec["factor_ms"],
@@ -1834,6 +1989,9 @@ def main() -> int:
                     help="only the level main path and its four kernels at "
                          "every level shape, per launch (poisson3d 32 and "
                          "64), and their single-tile latencies")
+    ap.add_argument("--levels-out", metavar="FILE",
+                    help="with --scan-only: write every per-level row of "
+                         "the level kernels to FILE (JSON lines)")
     ap.add_argument("--no-run-times", action="store_true",
                     help="with --solve-only: skip the per-run times (for a "
                          "tree whose solve stream has no work_items)")
@@ -1862,7 +2020,7 @@ def main() -> int:
     if args.factor_only:
         return factor_only(card, not args.no_large, t_start)
     if args.scan_only:
-        return scan_only(card, not args.no_large, t_start)
+        return scan_only(card, not args.no_large, t_start, args.levels_out)
 
     # level path (schedule='scan') and its four kernels
     rec, num, fex, sex = main_path(32, card, True, "scan")
@@ -1913,17 +2071,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     if not args.no_large:
-        # both main paths again; the update kernel held against its plain
-        # version at every level, the factor stream kernel against its plain
-        # version and the level executor's factor
+        # both main paths again; the level kernels held against their plain
+        # versions at every level, the factor stream kernel against its
+        # plain version and the level executor's factor, the solve stream
+        # kernel against its plain version
+        by_name = {k["name"]: k for k in kernels}
         for schedule in ("scan", "mega"):
             rec64, num, fex, sex = main_path(64, card, False, schedule)
             emit("main_path", **rec64)
             if schedule == "scan":
-                k3 = update_levels_check(num, fex)
+                # K1, K2, K3 and K5 at every level shape of this size too
+                _, levels = scan_level_times(num, fex, sex, (rec64["nrhs"],),
+                                             plain_times=True)
+                for big in level_kernel_rows(levels, fex, rec64["nrhs"],
+                                             rec64["launches"], 1e-5):
+                    by_name[big["name"]]["large"] = dict(
+                        matrix=rec64["matrix"],
+                        **{k: big[k] for k in LARGE_KEYS})
+                k3 = by_name["update"]["large"]
                 emit("update_rates", card=card, matrix=rec64["matrix"],
-                     kernel="update", levels_checked=k3["levels_checked"],
-                     max_rel_err=k3["max_rel_err"], **update_rates(
+                     kernel="update", levels_checked=k3["launches_timed"],
+                     max_rel_err=k3["rel_err"], **update_rates(
                          rec64["update_gflop"], k3["ms"], k3["device_ms"]))
                 scan_pool = num.pool
             else:
@@ -1942,7 +2110,9 @@ def main() -> int:
                      kernel="mega_factor UPD runs",
                      **update_rates(rec64["update_gflop"], rt["upd_ms"]))
                 del pool0
-                solve_stream_phase(num, sex, rec64, card)
+                by_name["mega_solve"]["large"] = dict(
+                    matrix=rec64["matrix"],
+                    **solve_stream_phase(num, sex, rec64, card))
             if args.profile:
                 profiled(f"{args.profile}.large.{schedule}", schedule, rec64,
                          num, fex, sex)

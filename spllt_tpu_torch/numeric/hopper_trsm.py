@@ -8,14 +8,16 @@ potrf; they are junk for this purpose and never act as pivots.
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/pallas_trsm.py``
 (``pallas_trsm_batch`` / ``trsm_tiles_body``); the source is
 ``csrc/trsm.cu``.  By the count it is bound by bytes (about 2.5 tiles moved
-for nb·kv² operations); in practice by the chain of ``kv`` dependent column
-steps per row.  The rows of dst are independent, so one thread owns one row
-and the substitution needs no barrier: a block of up to 128 threads stages
-its dst rows and the L tile in shared memory and walks the columns in
-register panels of 8, with 16-byte broadcast loads of L.  When L does not
-fit in shared memory beside the dst rows (the default nb = 256 in float32)
-the same kernel reads it from global memory.  Many pairs share one diag
-tile, so those reads hit L2.
+for nb·kv² operations); in practice by the latency of the chain of ``kv``
+dependent column steps, since most levels have fewer pairs than the card
+has SMs.  Its design is the factor stream kernel's TRSM item
+(``csrc/mega_factor_body.cuh``): one block takes a band of 16, 32 or 64 dst
+rows of one pair (:func:`trsm_band_rows`: the fewer pairs, the narrower
+the bands, so that a level with few pairs spreads over more blocks),
+stages L^T and its rows in shared memory and eliminates in panels of 16
+columns, one thread a row in registers, then a register-tiled rank-16
+product.  Where L^T does not fit beside the rows (nb = 256) it is staged a
+panel at a time.
 """
 
 from __future__ import annotations
@@ -26,12 +28,34 @@ import torch
 
 from ._build import check_launch, load, require_cuda_tensors
 
-__all__ = ["trsm", "trsm_plain"]
+__all__ = ["trsm", "trsm_plain", "trsm_band_rows", "trsm_bands"]
+
+# Rows of the widest band and the blocks a launch is spread over (two on
+# each of the H100's 132 SMs); csrc/trsm.cu band_rows states the same rule.
+BAND_ROWS, BAND_BLOCKS = 64, 264
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_trsm_{s}": [_P, _P, _P, _P, _I, _I, _P]
         for s in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def trsm_band_rows(npairs: int, nb: int) -> int:
+    """Rows of each band the kernel cuts a pair into, for a launch of
+    ``npairs`` pairs: 16, 32 or 64, the narrowest that keeps the launch's
+    blocks within ``BAND_BLOCKS`` (never more than nb)."""
+    items = npairs * -(-nb // BAND_ROWS)
+    rows = (BAND_ROWS // 4 if 4 * items <= BAND_BLOCKS else
+            BAND_ROWS // 2 if 2 * items <= BAND_BLOCKS else BAND_ROWS)
+    return min(rows, nb)
+
+
+def trsm_bands(npairs: int, nb: int) -> list:
+    """The kernel's blocks for a launch of ``npairs`` pairs: (pair, first
+    dst row, rows) each, in block order."""
+    rows = trsm_band_rows(npairs, nb)
+    return [(p, r0, min(rows, nb - r0)) for p in range(npairs)
+            for r0 in range(0, nb, rows)]
 
 
 def trsm_plain(diag: torch.Tensor, dst: torch.Tensor,

@@ -66,6 +66,7 @@ from .hopper_trsm import trsm_plain
 from .hopper_update import apply_updates_plain, build_micro_tasks
 
 __all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "TRSM_ROWS", "BLOCKS",
+           "UPD_EXEC_ROWS", "UPD_EXEC_COLS", "UPD_EXEC_SLAB",
            "build_mega_stream", "trsm_split", "trsm_work_items",
            "run_parts", "stream_to_device", "mega_factorize", "mega_factorize_plain",
            "MegaFactorExecutor"]
@@ -75,6 +76,10 @@ KIND_UPD, KIND_POTRF, KIND_TRSM = 0, 1, 2
 # split is sized for (two blocks on each of the H100's 132 SMs); neither
 # depends on the grid a launch gets, so neither does any result
 TRSM_ROWS, BLOCKS = 64, 264
+# The UPD body's arithmetic (csrc/update_body.cuh), per task: the aligned
+# blocks of 8 rows (a warp's) and 64 columns (half a 128-wide piece) that
+# hold a live entry, over srcn rounded up to 8 contraction steps (a slab).
+UPD_EXEC_ROWS, UPD_EXEC_COLS, UPD_EXEC_SLAB = 8, 64, 8
 
 _TASK_KEYS = ("wr", "wc", "dst", "aux", "srcn")
 _DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "run_split",
