@@ -68,6 +68,7 @@ One JSON object per line; any failed check raises and the exit code is not
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -181,10 +182,11 @@ def live_blocks(mask: torch.Tensor, g: int) -> torch.Tensor:
 
 def exec_granularity(stream: bool):
     """How the update body of K3 (``stream=False``) or of K4's UPD runs
-    rounds its arithmetic: (compact, rows, columns, contraction).  K3 since
-    PR 9 counts the live rows and columns themselves (compact), K4's body
-    the aligned blocks of the tile that hold a live one.  An older tree
-    states one granularity for both in ``hopper_update``."""
+    rounds its arithmetic: (compact, rows, columns, contraction).  K3's
+    body counts the live rows and columns themselves (compact), K4's body
+    the aligned blocks of the tile that hold a live one.  An older tree,
+    whose two kernels shared one body, states one granularity for both in
+    ``hopper_update``."""
     from spllt_tpu_torch.numeric import hopper_update as hu
     from spllt_tpu_torch.numeric import megakernel as mk
 
@@ -694,8 +696,9 @@ def level_edge_batches() -> dict:
     bands), the one pair bit for bit equal to the same pair in the 300; K5
     on K1's plain factor at nrhs 1, 4, 63, 64, 65 and 130, each direction;
     tiles whose pivot fails at column 0 and at column 17 must come back NaN
-    everywhere from both routes; K3 on ``compact_edge_tasks`` at nb 48, 128
-    and 256, two launches bit for bit equal.  Within 1e-5 (float32) and
+    everywhere from both routes; K3 on ``compact_edge_tasks`` and
+    ``dense_edge_tasks`` (its one-block-an-SM launch) at nb 48, 128 and
+    256, two launches bit for bit equal.  Within 1e-5 (float32) and
     1e-11 (float64) of max|ref| (K3: of the size of the update).  Returns
     the worst error by kernel and dtype."""
     from spllt_tpu_torch.numeric import (hopper_potrf, hopper_solve,
@@ -758,25 +761,30 @@ def level_edge_batches() -> dict:
                 batches += 1
     # K3 on hand-made tables at the edges of its packed entries, stages and
     # sub-tiles (skipped against an older tree, which has no such tables)
-    compact = getattr(hopper_update, "compact_edge_tasks", None)
-    for dtype in (torch.float32, torch.float64) if compact else ():
-        for nb in (48, 128, 256):
-            tasks, rows_ = compact(nb, SEED + nb)
-            t = hopper_update.tasks_to_device(tasks, nb, rows_, "cuda")
-            pool = torch.as_tensor(rng.standard_normal((rows_, nb)),
-                                   dtype=dtype, device="cuda")
-            got = hopper_update.apply_updates(pool.clone(), t)
-            again = hopper_update.apply_updates(pool.clone(), t)
-            ref = hopper_update.apply_updates_plain(pool.clone(), t)
-            torch.cuda.synchronize()
-            require(torch.equal(got, again), f"update edge tasks nb={nb} "
-                                             f"{dtype}: two launches differ")
-            rel = rel_err(got, ref, pool)[1]
-            require(rel <= tols[dtype], f"update edge tasks nb={nb} {dtype}: "
-                                        f"rel err {rel}")
-            key = f"update_{str(dtype)[6:]}"
-            worst[key] = max(worst.get(key, 0.0), rel)
-            batches += 1
+    kinds = (("compact", "dense")
+             if hasattr(hopper_update, "compact_edge_tasks") else ())
+    for dtype, nb, kind in itertools.product(
+            (torch.float32, torch.float64), (48, 128, 256), kinds):
+        make = getattr(hopper_update, f"{kind}_edge_tasks")
+        tasks, rows_ = make(nb, SEED + nb)
+        t = hopper_update.tasks_to_device(tasks, nb, rows_, "cuda")
+        require(t["dense"] == (kind == "dense"),
+                f"update edge tasks {kind} nb={nb}: launch choice")
+        pool = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                               dtype=dtype, device="cuda")
+        got = hopper_update.apply_updates(pool.clone(), t)
+        again = hopper_update.apply_updates(pool.clone(), t)
+        ref = hopper_update.apply_updates_plain(pool.clone(), t)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"update edge tasks {kind} "
+                                         f"nb={nb} {dtype}: two launches "
+                                         f"differ")
+        rel = rel_err(got, ref, pool)[1]
+        require(rel <= tols[dtype], f"update edge tasks {kind} nb={nb} "
+                                    f"{dtype}: rel err {rel}")
+        key = f"update_{str(dtype)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        batches += 1
     return dict(batches=batches, worst_rel=worst)
 
 

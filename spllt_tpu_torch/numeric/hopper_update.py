@@ -7,32 +7,38 @@ windows of the pool starting at rows ``lor[t]`` / ``loc[t]``; a map entry of
 -1 masks its row, C rows >= ``blkn[t]`` are masked; ``dst[t] −= R·Cᵀ``,
 contracted over the first ``srcn[t]`` columns (the valid width of the source
 block column — the pool keeps the columns beyond it at zero, so on a real
-pool this is the full product).  Tasks with the same destination are summed
-before one read-modify-write.
+pool this is the full product).  Tasks with the same destination form one
+segment.
 
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/pallas_update.py``
 (``pallas_apply_updates`` / ``_kernel`` with ``onehot_gather``); the source
-is ``csrc/update.cu``.  Most micro-tasks are sparse (few unmasked rows and
-columns, narrow source block columns), so by the count of what the unmasked
-work needs the kernel is bound by bytes, and in practice by the latency of
-the dependent loads of each micro-task (its row tables, then its slabs).
-The TPU kernel is a sequential grid carrying an accumulator across steps; on
-the GPU blocks run in no order, so one thread block owns one destination
-*segment* (the run of micro-tasks with equal ``dst``; the host computes
-segment offsets) — the whole 128×128 tile at nb = 128, an 8×8 patch per
-thread — loops over the segment's tasks, keeps the sum in registers and
-subtracts it from the destination once: deterministic, no atomics.  The
-gathers are exact indexed row loads, not one-hot products; operands are
-staged through double-buffered shared-memory slabs of 8 contraction steps.
-The kernel stops the contraction at ``srcn``, skips fully masked 64-wide
-halves of a task, and a warp skips its 8 destination rows when they are
-all masked (``EXEC_ROWS``, ``EXEC_COLS``, ``EXEC_SLAB`` state that
-granularity).
+is ``csrc/update.cu``.  By the count of what the live rows and columns need
+it is bound by bytes; in practice by the arithmetic over the live rows and
+columns and, on levels of tiny tasks, by each task's latency.  Most
+micro-tasks are sparse (a few dozen live rows and columns of a 128-row
+tile), so :func:`tasks_to_device` packs, once per pattern, each task's live
+rows and then its live columns as int32 entries ``i << 16 | rel`` (``i``
+the destination row or column, ``rel`` the window-relative source row;
+``eptr``/``enr``/``ent``, with ``CHAIN`` on a task whose next task has the
+same destination and live rows and columns), and the kernel multiplies
+only those: one thread block per destination segment loops over its tasks,
+copies each task's live source rows into shared memory (16-byte
+``cp.async`` in a ring of stages that runs on from task to task,
+zero-filled past ``srcn``), multiplies them as a register-tiled product
+over the compact rows and columns, and subtracts the sums from the
+destination's live cells in place (once for a chain of flagged tasks).
+Its arithmetic covers a task's live rows and columns rounded up to
+``EXEC_ROWS`` and ``EXEC_COLS`` and ``srcn`` rounded up to ``EXEC_SLAB``
+(``EXEC_COMPACT``: counted over the compact rows, not over aligned blocks
+of the tile).  Deterministic, no atomics: a segment's tasks are applied in
+their order by one block.  The JAX-format maps ``relr``/``relc`` stay in
+the tables, as int16, for the plain version and the checks.
 
 This module also holds the port's own copy of ``build_micro_tasks`` (pure
 NumPy), ``tasks_to_device``, which checks the tables and computes the
-segment offsets, and ``edge_case_tasks``, the hand-made tables of the
-kernels' checks on the card.
+segment offsets and the packed entries, and ``edge_case_tasks``,
+``compact_edge_tasks`` and ``dense_edge_tasks``, the hand-made tables of
+the kernels' checks on the card.
 """
 
 from __future__ import annotations
@@ -44,20 +50,33 @@ import torch
 
 from ._build import check_launch, load, require_cuda_tensors
 
-__all__ = ["build_micro_tasks", "tasks_to_device", "edge_case_tasks",
-           "apply_updates", "apply_updates_plain", "EXEC_ROWS", "EXEC_COLS",
-           "EXEC_SLAB"]
+__all__ = ["build_micro_tasks", "tasks_to_device", "pack_live_entries",
+           "edge_case_tasks", "compact_edge_tasks", "apply_updates",
+           "apply_updates_plain", "EXEC_ROWS", "EXEC_COLS", "EXEC_SLAB",
+           "EXEC_COMPACT", "CHAIN", "dense_level", "dense_edge_tasks"]
 
-# The kernel's arithmetic, per micro-task, covers the aligned blocks of
-# EXEC_ROWS rows and EXEC_COLS columns that hold a live entry, over srcn
-# rounded up to EXEC_SLAB contraction steps (csrc/update_body.cuh: a warp's
-# rows, half a 128-wide piece, one slab) — at every nb.
-EXEC_ROWS, EXEC_COLS, EXEC_SLAB = 8, 64, 8
+# The kernel's arithmetic, per micro-task, covers its live rows and its live
+# columns each rounded up to 16 (a thread's rows and columns are 16 apart)
+# and srcn rounded up to 4 (one 16-byte step of the float product), at
+# every nb: counted over the compact rows and columns (EXEC_COMPACT).
+EXEC_ROWS, EXEC_COLS, EXEC_SLAB, EXEC_COMPACT = 16, 16, 4, True
+# the flag of a packed table's ``enr`` entry: the next task has the same
+# destination and the same live rows and columns
+CHAIN = 1 << 16
+# A level whose tasks have on average at least DENSE_LIVE of nb live rows
+# and live columns, in segments of at least DENSE_SEGMENT tasks on
+# average, runs one block an SM (``dense``): such long chains of
+# near-dense products are bound by the SM's arithmetic, and the float
+# product then holds its 8 x 8 patch in registers without spills.
+DENSE_LIVE, DENSE_SEGMENT = 7 / 8, 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {f"spllt_update_{s}": [_P] * 9 + [_I, _I, _P] for s in ("f32", "f64")}
+_SIG = {f"spllt_update_{s}": [_P] * 9 + [_I, _I, _I, _P]
+        for s in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _TASK_KEYS = ("dst", "lor", "loc", "blkn", "srcn", "relr", "relc")
+# what the kernel reads, in the order of its C arguments
+_KERNEL_KEYS = ("seg_ptr", "dst", "lor", "loc", "srcn", "eptr", "enr", "ent")
 
 
 def build_micro_tasks(fp, lvl_lo: int, lvl_hi: int, nb: int,
@@ -132,15 +151,59 @@ def build_micro_tasks(fp, lvl_lo: int, lvl_hi: int, nb: int,
     }
 
 
+def pack_live_entries(relr: np.ndarray, relc: np.ndarray,
+                      blkn: np.ndarray, dst: np.ndarray, nb: int):
+    """The kernel's packed tables of a micro-task table: per task its live
+    rows (``relr >= 0``) in ascending order, then its live columns
+    (``relc >= 0`` and below ``blkn``), each as the int32 entry
+    ``i << 16 | rel`` (``i`` the destination row or column, ``rel`` the
+    window-relative source row).  Returns ``eptr`` [K+1] (offsets),
+    ``enr`` [K] (live rows, plus ``CHAIN`` where the next task has the same
+    ``dst`` and the same live rows and columns: the kernel then keeps the
+    sums of both in registers) and ``ent`` (the entries)."""
+    relr, relc = np.asarray(relr, np.int32), np.asarray(relc, np.int32)
+    dst = np.asarray(dst)
+    ar = np.arange(nb, dtype=np.int32)
+    live = np.concatenate(
+        [relr >= 0, (relc >= 0) & (ar[None, :]
+                                   < np.asarray(blkn)[:, None])], axis=1)
+    code = np.concatenate([(ar << 16) | relr, (ar << 16) | relc], axis=1)
+    eptr = np.zeros(len(relr) + 1, np.int64)
+    np.cumsum(live.sum(1), out=eptr[1:])
+    if eptr[-1] >= 2 ** 31:
+        raise ValueError("update tasks: too many live entries for int32")
+    chain = np.zeros(len(relr), bool)
+    chain[:-1] = (dst[1:] == dst[:-1]) & (live[1:] == live[:-1]).all(1)
+    enr = live[:, :nb].sum(1) + np.where(chain, CHAIN, 0)
+    return (eptr.astype(np.int32), enr.astype(np.int32),
+            code[live].astype(np.int32))
+
+
+def dense_level(enr: np.ndarray, eptr: np.ndarray, nseg: int,
+                nb: int) -> bool:
+    """Whether a level's packed tables call for one block an SM (see
+    ``DENSE_LIVE``)."""
+    k = len(enr)
+    if k == 0:
+        return False
+    nr = np.asarray(enr) % CHAIN
+    nc = np.diff(eptr) - nr
+    return bool(nr.mean() >= DENSE_LIVE * nb and nc.mean() >= DENSE_LIVE * nb
+                and k >= DENSE_SEGMENT * nseg)
+
+
 def tasks_to_device(tasks: dict, nb: int, pool_rows: int, device) -> dict:
     """Validate a micro-task table (NumPy, as ``build_micro_tasks`` returns
-    it) and move it to ``device`` as int32 tensors, adding ``seg_ptr``
-    [nseg+1]: the offsets of the runs of equal ``dst``.  A table without
-    ``srcn`` gets ``srcn = nb`` (full contraction).
+    it) and move it to ``device`` as tensors, adding ``seg_ptr`` [nseg+1]
+    (the offsets of the runs of equal ``dst``) and the packed live entries
+    of :func:`pack_live_entries` (``eptr``, ``enr``, ``ent``) and the
+    launch choice ``dense`` (:func:`dense_level`).  ``relr`` and
+    ``relc`` stay as int16 (the plain version and the checks read them).
+    A table without ``srcn`` gets ``srcn = nb`` (full contraction).
 
     Checks what the kernel relies on: ``dst`` sorted and inside the pool,
     every rel entry in [-1, nb), every window in [0, pool_rows − nb],
-    ``srcn`` in [0, nb]."""
+    ``srcn`` in [0, nb], nb below 2**15 (the packed entries)."""
     dst = np.asarray(tasks["dst"])
     k = len(dst)
     if "srcn" not in tasks:
@@ -148,6 +211,8 @@ def tasks_to_device(tasks: dict, nb: int, pool_rows: int, device) -> dict:
     relr, relc = np.asarray(tasks["relr"]), np.asarray(tasks["relc"])
     if relr.shape != (k, nb) or relc.shape != (k, nb):
         raise ValueError("update tasks: relr/relc must be [K, nb]")
+    if nb >= 2 ** 15:
+        raise ValueError("update tasks: nb must be below 2**15")
     if k:
         if (np.diff(dst) < 0).any():
             raise ValueError("update tasks: dst must be sorted")
@@ -168,9 +233,14 @@ def tasks_to_device(tasks: dict, nb: int, pool_rows: int, device) -> dict:
     starts = np.flatnonzero(np.diff(dst, prepend=-1)) if k else \
         np.empty(0, np.int64)
     seg_ptr = np.concatenate([starts, [k]]).astype(np.int32)
-    out = {nm: torch.as_tensor(np.ascontiguousarray(tasks[nm], np.int32),
-                               device=device) for nm in _TASK_KEYS}
+    out = {nm: torch.as_tensor(np.ascontiguousarray(
+        tasks[nm], np.int16 if nm in ("relr", "relc") else np.int32),
+        device=device) for nm in _TASK_KEYS}
     out["seg_ptr"] = torch.as_tensor(seg_ptr, device=device)
+    eptr, enr, ent = pack_live_entries(relr, relc, tasks["blkn"], dst, nb)
+    for nm, a in zip(("eptr", "enr", "ent"), (eptr, enr, ent)):
+        out[nm] = torch.as_tensor(a, device=device)
+    out["dense"] = dense_level(enr, eptr, len(seg_ptr) - 1, nb)
     return out
 
 
@@ -219,6 +289,105 @@ def edge_case_tasks(nb: int, pool_rows: int, seed: int) -> dict:
             "relr": relr.astype(np.int32), "relc": relc.astype(np.int32)}
 
 
+def compact_edge_tasks(nb: int, seed: int):
+    """A hand-made micro-task table (NumPy, as :func:`build_micro_tasks`
+    returns it) at the edges of the kernel's packed entries, stages and
+    sub-tiles, and the pool rows it needs.  Tile 0, one segment: a task with
+    no live row, one with no live column, one live row and column at srcn
+    1, all nb rows and columns live at srcn nb, srcn 0, then live rows and
+    columns at 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255 and
+    256 (those <= nb) with srcn through 3, 4, 5, 15, 16, 17, 31, 32, 33, 47,
+    48, 49 and nb; tile 1, a segment of 40 random tasks; tiles 2–301, a
+    level of tiny tasks (1–3 a segment, 1–5 live rows and columns, srcn
+    1–8).  Three tasks of tile 0 and the last five of tile 1 have the same
+    live rows and columns (chains).  Every window lies past the
+    destinations."""
+    rng = np.random.default_rng(seed)
+
+    def live(count):
+        rel = np.full(nb, -1)
+        pos = rng.permutation(nb)[:count]
+        rel[pos] = rng.integers(0, nb, count)
+        return rel
+
+    counts = [c for c in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129,
+                          255, 256) if c <= nb]
+    srcns = [3, 4, 5, 15, 16, 17, 31, 32, 33, 47, 48, 49, nb]
+    rr = [live(0), live(nb // 2), live(1), live(nb), live(nb // 3)]
+    rc = [live(nb // 2), live(0), live(1), live(nb), live(nb // 3)]
+    sn = [nb, nb, 1, nb, 0]
+    for i, c in enumerate(counts):
+        rr.append(live(c))
+        rc.append(live(counts[-1 - i]))
+        sn.append(min(srcns[i % len(srcns)], nb))
+    # a chain: three tasks with the same live rows and columns (other
+    # sources), the middle one at srcn 0
+    chained = []
+    for kn in (nb, 0, 17 if nb > 17 else nb):
+        chained.append(len(rr))
+        rr.append(np.where(rr[3] >= 0, rng.integers(0, nb, nb), -1))
+        rc.append(np.where(rc[3] >= 0, rng.integers(0, nb, nb), -1))
+        sn.append(kn)
+    dst = [0] * len(rr)
+    for i in range(40):       # the last five a chain
+        if i >= 35:
+            chained.append(len(rr))
+            rr.append(np.where(rr[-1] >= 0, rng.integers(0, nb, nb), -1))
+            rc.append(np.where(rc[-1] >= 0, rng.integers(0, nb, nb), -1))
+            sn.append(int(rng.integers(0, nb + 1)))
+            dst.append(1)
+            continue
+        rr.append(live(int(rng.integers(0, nb + 1))))
+        rc.append(live(int(rng.integers(0, nb + 1))))
+        sn.append(int(rng.integers(0, nb + 1)))
+        dst.append(1)
+    for tile in range(2, 302):
+        for _ in range(int(rng.integers(1, 4))):
+            rr.append(live(int(rng.integers(1, min(5, nb) + 1))))
+            rc.append(live(int(rng.integers(1, min(5, nb) + 1))))
+            sn.append(int(rng.integers(1, min(8, nb) + 1)))
+            dst.append(tile)
+    k = len(dst)
+    pool_rows = 400 * nb
+    lo = rng.integers(302 * nb, pool_rows - nb + 1, size=(2, k))
+    blkn = np.full(k, nb)
+    blkn[1::7] = rng.integers(1, nb + 1, len(blkn[1::7]))
+    blkn[chained] = nb
+    return {"dst": np.asarray(dst, np.int32),
+            "lor": lo[0].astype(np.int32), "loc": lo[1].astype(np.int32),
+            "blkn": blkn.astype(np.int32),
+            "srcn": np.asarray(sn, np.int32),
+            "relr": np.stack(rr).astype(np.int32),
+            "relc": np.stack(rc).astype(np.int32)}, pool_rows
+
+
+def dense_edge_tasks(nb: int, seed: int):
+    """A hand-made level that :func:`dense_level` sends to one block an SM,
+    and the pool rows it needs: 24 destination tiles, 8 tasks each, as two
+    chains of 4 (all nb rows and columns live; then all but nb // 16 of
+    them), srcn through 1 to nb.  Every window lies past the
+    destinations."""
+    rng = np.random.default_rng(seed)
+    ndst, per = 24, 8
+    k = ndst * per
+    relr = np.tile(np.arange(nb), (k, 1))
+    relc = relr.copy()
+    for t in range(k):
+        relr[t], relc[t] = rng.permutation(nb), rng.permutation(nb)
+    drop = rng.permutation(nb)[:nb // 16]
+    half = (np.arange(k) % per) >= per // 2
+    relr[np.ix_(half, drop)] = -1
+    relc[np.ix_(half, drop)] = -1
+    pool_rows = (ndst + 64) * nb
+    lo = rng.integers(ndst * nb, pool_rows - nb + 1, size=(2, k))
+    return {"dst": np.repeat(np.arange(ndst), per).astype(np.int32),
+            "lor": lo[0].astype(np.int32), "loc": lo[1].astype(np.int32),
+            "blkn": np.full(k, nb, np.int32),
+            "srcn": rng.integers(1, nb + 1, k).astype(np.int32),
+            "relr": relr.astype(np.int32),
+            "relc": relc.astype(np.int32)}, pool_rows
+
+
 def apply_updates_plain(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
     """Plain PyTorch version (any device), in place on ``poolf`` [rows, nb]:
     indexed gathers, one batched product, one ``index_add_``."""
@@ -247,12 +416,12 @@ def apply_updates(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if poolf.device.type == "cpu":
         return apply_updates_plain(poolf, tasks)
-    tens = [tasks[nm] for nm in ("seg_ptr",) + _TASK_KEYS]
+    tens = [tasks[nm] for nm in _KERNEL_KEYS]
     require_cuda_tensors("apply_updates", poolf, *tens)
     nb = poolf.shape[1]
     k = tasks["dst"].shape[0]
     if poolf.ndim != 2 or poolf.shape[0] % nb or \
-            tasks["relr"].shape != (k, nb) or tasks["relc"].shape != (k, nb):
+            tasks["eptr"].shape != (k + 1,) or tasks["enr"].shape != (k,):
         raise ValueError("apply_updates: bad shapes")
     if poolf.dtype not in _SUFFIX or any(t.dtype != torch.int32
                                          for t in tens):
@@ -264,7 +433,8 @@ def apply_updates(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
     fn = getattr(load("update", _SIG), "spllt_update_" + _SUFFIX[poolf.dtype])
     with torch.cuda.device(poolf.device):
         status = fn(poolf.data_ptr(), *(t.data_ptr() for t in tens), nseg,
-                    nb, torch.cuda.current_stream().cuda_stream)
+                    nb, int(tasks["dense"]),
+                    torch.cuda.current_stream().cuda_stream)
     check_launch(status, "apply_updates")
     apply_updates.launches += 1
     return poolf
