@@ -16,6 +16,7 @@
                                           # single-tile latencies (add
                                           # --levels-out FILE for every
                                           # per-level row)
+    python3 chip_smoke.py --entry-only    # only step 6: the entry points
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -59,7 +60,21 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      factor stream kernel against its plain version and the level
      executor's factor, and the solve stream kernel against its plain
      version per direction at nrhs 1, 4 and 64, with the per-run times of
-     both stream kernels.
+     both stream kernels;
+  6. drives the entry points: ``Options(coarse_subtrees=True)`` at
+     poisson3d(32) and (64) (default span and waste) under both schedules —
+     the dense phase's buckets, the factor against the non-coarse one, the
+     refined backward error, ``factor_ms`` with and without the coarse
+     layer, a front that is not positive definite, and K1 held against its
+     plain version on each bucket's real fronts and timed there (rows of
+     the ``kernels`` line); ``python3 -m spllt_tpu_torch`` as four
+     subprocesses (64³ 'mega' and 64³ coarse 'scan' with --stats, --timers,
+     --trace and --dot-tree, and a 32³ matrix through --mm and --mat at the
+     amd ordering); a checkpoint saved, reloaded onto the card and solved
+     bit for bit, and refactorized from its symbolic file bit for bit; and
+     one 'mega' factor + solve under ``utils.tracing.device_trace``, whose
+     trace must name both stream kernels.  Files go to
+     ``chiprun_out/entry/``; the checkpoint and the matrix files are removed.
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -70,6 +85,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -272,6 +288,15 @@ def update_rates(gflop: dict, ms: float, device_ms=None) -> dict:
     return out
 
 
+def main_options(m: int, schedule: str, **kw):
+    """bench.py's configuration of poisson3d(m), the main path's."""
+    import spllt_tpu_torch as st
+
+    return st.Options(ordering="nd-grid", grid_shape=(m, m, m), nb=128,
+                      nemin=192, schedule=schedule, dtype="float32",
+                      refine=2, **kw)
+
+
 def main_path(m: int, card: str, full_checks: bool, schedule: str):
     """analyse → factor → refined solve of poisson3d(m) through the public
     API with ``schedule`` ('scan': level executors, 'mega': stream
@@ -281,8 +306,7 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
     from spllt_tpu_torch.analyse.native import native_available
 
     wrappers = kernel_wrappers()
-    opts = st.Options(ordering="nd-grid", grid_shape=(m, m, m), nb=128,
-                      nemin=192, schedule=schedule, dtype="float32", refine=2)
+    opts = main_options(m, schedule)
     nrhs = 4
     a = st.poisson3d(m)
     rng = np.random.default_rng(SEED)
@@ -1910,12 +1934,7 @@ def scan_only(card: str, large: bool, t_start: float,
         torch.cuda.empty_cache()
     emit("level_edge_batches", card=card, **level_edge_batches())
     emit("level_item_times", card=card, **level_item_times())
-    emit("elapsed", seconds=time.perf_counter() - t_start)
-    print(smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(t_start)
 
 
 def solve_only(card: str, large: bool, run_times: bool,
@@ -1934,12 +1953,7 @@ def solve_only(card: str, large: bool, run_times: bool,
         del num, fex, sex
         torch.cuda.empty_cache()
     print(json.dumps({"mega_solve_rows": rows}), flush=True)
-    emit("elapsed", seconds=time.perf_counter() - t_start)
-    print(smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(t_start)
 
 
 def factor_only(card: str, large: bool, t_start: float) -> int:
@@ -1974,15 +1988,342 @@ def factor_only(card: str, large: bool, t_start: float) -> int:
         d: max(v["rel"] for k, v in edges.items() if d in k)
         for d in ("float32", "float64")})
     emit("factor_item_times", card=card, **factor_item_times())
-    emit("elapsed", seconds=time.perf_counter() - t_start)
-    print(smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(t_start)
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# the entry points: coarse dense subtrees, the CLI, checkpoints, tracing
+# --------------------------------------------------------------------- #
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "entry")
+
+
+def poison_coarse(a, symb, fplan):
+    """``a`` with a negative diagonal entry on a column inside the first
+    coarsened subtree that has a diagonal entry in its assembly map."""
+    import spllt_tpu_torch as st
+
+    col = None
+    for b in fplan.dense:
+        hit = np.flatnonzero(b["asm_r"] == b["asm_c"])
+        if len(hit):
+            vidx = int(b["asm_vidx"][hit[0]])
+            col = int(np.searchsorted(symb.a_perm.colptr, vidx,
+                                      side="right") - 1)
+            break
+    require(col is not None, "no diagonal entry inside a coarse subtree")
+    u = int(symb.perm[col])
+    vals = a.values.copy()
+    lo, hi = a.colptr[u], a.colptr[u + 1]
+    vals[lo + int(np.flatnonzero(a.rowind[lo:hi] == u)[0])] = -1.0
+    return st.CscMatrix(a.n, a.colptr, a.rowind, vals)
+
+
+def dense_kernel_rows(dx, pool0, matrix, launches, tol=1e-5, reps=5):
+    """K1 on each bucket's real fronts (gathered from the assembled pool
+    ``pool0``) against its plain version, timed as the host issues the
+    launch (``ms``) and on the device alone (``device_ms``); bound: bytes
+    (every front written whole, the trapezoid of its kv columns read) over
+    the memory rate against its operations over the float32 rate."""
+    from spllt_tpu_torch.numeric import hopper_potrf
+
+    rows = []
+    for t in dx.buckets:
+        fronts, kv = dx.fronts(pool0, t), t["kvec"]
+        sp = t["spad"]
+        name = f"potrf (coarse fronts, spad {sp}, {matrix})"
+        mabs, rel, ms, pms, _ = compare(
+            name, hopper_potrf.potrf, hopper_potrf.potrf_plain,
+            lambda: (fronts, kv), tol, reps)
+        dms = time_device_ms(lambda: hopper_potrf.potrf(fronts, kv), reps)
+        pdms = time_device_ms(lambda: hopper_potrf.potrf_plain(fronts, kv),
+                              reps)
+        acc = Acc()
+        acc.add(t["nsub"], mabs, rel, ms, pms, None,
+                *potrf_work(kv.cpu().numpy(), sp, 4), device=(dms, pdms,
+                                                              None))
+        row = kernel_row("potrf", "potrf", "spllt_tpu/numeric/"
+                         "pallas_potrf.py:167", acc,
+                         "the bucket's one launch of a coarse factorization",
+                         f"fronts [{t['nsub']},{sp},{sp}], kv up to "
+                         f"{int(kv.max())}", {"potrf": launches}, tol)
+        # a float32 front of spad 256 does not fit a block's shared memory
+        row.update(name=name, path=f"{'shared' if sp <= 128 else 'global'}"
+                                    "-memory elimination")
+        rows.append(row)
+    return rows
+
+
+def coarse_phase(m: int, card: str):
+    """Options(coarse_subtrees=True) at poisson3d(m) in bench.py's
+    configuration, default span and waste, under 'scan' and 'mega' through
+    the public API: the dense phase's buckets, the factor against the
+    non-coarse factor of the same pattern, the refined backward error,
+    ``factor_ms`` with and without the coarse layer, a front that is not
+    positive definite, and K1 on each bucket's real fronts.  Returns the
+    ``kernels`` rows of K1 at the fronts' shapes."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.api import _coarse_key, _exec_key
+    from spllt_tpu_torch.numeric import hopper_potrf
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+
+    wrappers = kernel_wrappers()
+    a = st.poisson3d(m)
+    b = np.random.default_rng(SEED + 10).standard_normal((a.n, 4))
+    t0 = time.perf_counter()
+    symb = st.analyse(a, main_options(m, "scan"))
+    t_analyse = time.perf_counter() - t0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = dict(matrix=f"poisson3d({m})", nb=128, nemin=192, dtype="float32",
+               refine=2, nrhs=4, coarse_span=256, coarse_waste=8.0,
+               host_analyse_s=t_analyse, card=card)
+    for w in wrappers.values():
+        w.launches = 0
+    per, dx, pool0 = {}, None, None
+    for schedule in ("scan", "mega"):
+        opts = main_options(m, schedule, coarse_subtrees=True)
+        plain_opts = main_options(m, schedule)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        num = st.factor(symb, options=opts)
+        first_factor_s = time.perf_counter() - t0
+        x = st.solve(num, b)
+        launches = {k: int(w.launches) for k, w in wrappers.items()}
+        err = bwd_err(a, x, b)
+        require(err <= BWD_ERR_MAX, f"coarse {schedule}: refined backward "
+                                    f"error {err} > {BWD_ERR_MAX}")
+        buckets = [dict(spad=int(t["spad"]), nsub=int(t["nsub"]),
+                        max_kv=int(np.max(t["kvec"])))
+                   for t in num.fplan.dense or []]
+        require(sum(t["nsub"] for t in buckets) >= 1,
+                f"no subtree of poisson3d({m}) was coarsened")
+        for k in PATH_KERNELS[schedule] + ("potrf",):
+            require(launches[k] > 0, f"coarse {schedule}: kernel {k} was "
+                                     "never launched")
+        fex = symb._cache[_exec_key("fex", opts, dev)]
+        levels = (sum("potrf" in lv for lv in fex.levels)
+                  if schedule == "scan" else 0)
+        require(launches["potrf"] == len(buckets) + levels,
+                f"coarse {schedule}: {launches['potrf']} potrf launches, not "
+                f"one for each of the {len(buckets)} buckets and {levels} "
+                "levels")
+        plain = st.factor(symb, options=plain_opts)
+        mabs, rel = rel_err(num.pool, plain.pool)
+        require(rel <= 1e-5, f"coarse {schedule}: factor differs from the "
+                             f"non-coarse factor: rel {rel}")
+        pfex = symb._cache[_exec_key("fex", plain_opts, dev)]
+        dx = symb._cache[("dense", 128, str(dev), _coarse_key(opts))]
+
+        def assembled():
+            return assemble_torch(num.plan, num.values_perm, torch.float32,
+                                  dev)
+
+        pool0 = assembled()
+        work = pool0.clone()
+        dense_ms = time_prepared_ms(lambda: work.copy_(pool0),
+                                    lambda: dx(work), 3)
+        del work
+        factor_ms = time_ms(lambda: fex(dx(assembled())[0]), 3)
+        plain_factor_ms = time_ms(lambda: pfex(assembled()), 3)
+        try:
+            st.factor(symb, poison_coarse(a, symb, num.fplan), options=opts)
+        except st.NotPositiveDefiniteError:
+            pass
+        else:
+            raise AssertionError(f"coarse {schedule}: a front that is not "
+                                 "positive definite did not raise")
+        per[schedule] = dict(
+            buckets=buckets, launches=launches, bwd_err=err,
+            vs_non_coarse_max_abs=mabs, vs_non_coarse_rel=rel,
+            factor_ms=factor_ms, non_coarse_factor_ms=plain_factor_ms,
+            dense_phase_ms=dense_ms, first_factor_s=first_factor_s,
+            num_tasks=int(num.fplan.num_tasks),
+            non_coarse_num_tasks=int(plain.fplan.num_tasks),
+            nlevels=int(num.fplan.nlevels),
+            non_coarse_nlevels=int(plain.fplan.nlevels),
+            not_posdef_raises=True)
+        del num, plain, x
+    # the dense phase's parts: the indexed gathers, K1, the indexed stores
+    fronts = [dx.fronts(pool0, t) for t in dx.buckets]
+    lfs = [hopper_potrf.potrf(f, t["kvec"])
+           for f, t in zip(fronts, dx.buckets)]
+    work = pool0.clone()
+    rec.update(
+        dense_gather_ms=time_ms(lambda: [dx.fronts(pool0, t)
+                                         for t in dx.buckets], 3),
+        dense_potrf_ms=time_ms(lambda: [hopper_potrf.potrf(f, t["kvec"])
+                                        for f, t in zip(fronts, dx.buckets)],
+                               3),
+        dense_scatter_ms=time_ms(lambda: [dx.scatter(work, t, lf) for t, lf
+                                          in zip(dx.buckets, lfs)], 3),
+        dense_tiles=int(sum(t["blk"].shape[0] for t in dx.buckets)))
+    del work, lfs, fronts
+    # each bucket: one launch in each of the two coarse factorizations
+    rows = dense_kernel_rows(dx, pool0, rec["matrix"], 2)
+    emit("coarse_phase", **rec, **per,
+         potrf_fronts=[{k: r[k] for k in ("name", "max_abs_err", "rel_err",
+                                           "ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
+                       for r in rows])
+    del pool0, dx, symb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cli_phase(card: str, large: bool) -> None:
+    """``python3 -m spllt_tpu_torch`` as a user runs it, each run a
+    subprocess that must exit 0 and print a JSON ``bwd_err`` <= 1e-13: 64³
+    (32³ with ``large`` off) under 'mega' with --stats, --timers, --trace and
+    --dot-tree, the same with --coarse under 'scan', and a 32³ matrix
+    written as MatrixMarket (--mm) and as Rutherford-Boeing (--mat), read
+    back at the default amd ordering."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.sparse.io import (write_matrix_market,
+                                           write_rutherford_boeing)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    m = 64 if large else 32
+    common = ["--nb", "128", "--nemin", "192", "--nrhs", "4", "--refine",
+              "2", "--json"]
+    trace, dot = (os.path.join(OUT_DIR, f) for f in ("cli_trace.json",
+                                                     "cli_atree.dot"))
+    flags = ["--stats", "--timers", "--trace", trace, "--dot-tree", dot]
+    mm, rb = (os.path.join(OUT_DIR, f) for f in ("p32.mtx", "p32.rb"))
+    a32 = st.poisson3d(32)
+    write_matrix_market(mm, a32)
+    write_rutherford_boeing(rb, a32)
+    runs = [("mega", ["--poisson3d", str(m), "--schedule", "mega"] + flags),
+            ("coarse_scan", ["--poisson3d", str(m), "--schedule", "scan",
+                             "--coarse"] + flags),
+            ("mm_amd", ["--mm", mm, "--schedule", "mega"]),
+            ("rb_amd", ["--mat", rb, "--schedule", "mega"])]
+    out = {}
+    try:
+        for tag, args in runs:
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "spllt_tpu_torch"]
+                               + args + common, capture_output=True,
+                               text=True, timeout=300,
+                               cwd=os.path.dirname(os.path.abspath(
+                                   __file__)))
+            wall = time.perf_counter() - t0
+            require(p.returncode == 0, f"CLI run {tag} exited "
+                                       f"{p.returncode}:\n{p.stderr[-3000:]}")
+            rec = json.loads(p.stdout.strip().splitlines()[-1])
+            require(rec["bwd_err"] <= BWD_ERR_MAX,
+                    f"CLI run {tag}: bwd_err {rec['bwd_err']}")
+            if "--trace" in args:
+                names = [e["name"] for e in
+                         json.load(open(trace))["traceEvents"]]
+                require("factor" in names and "solve" in names,
+                        f"CLI run {tag}: trace events {names}")
+                with open(dot) as f:
+                    require(f.read().startswith("digraph"),
+                            f"CLI run {tag}: the DOT file is not a digraph")
+                require("num_tasks" in p.stdout and "GFLOP/s" in p.stdout,
+                        f"CLI run {tag}: no --stats / --timers output")
+            out[tag] = dict(args=" ".join(args + common).replace(
+                OUT_DIR + os.sep, ""), wall_s=wall, **{
+                k: rec[k] for k in ("n", "nnz", "nnz_L", "flops",
+                                    "t_analyse", "t_factor", "t_solve",
+                                    "gflops", "bwd_err")})
+    finally:
+        for f in (mm, rb):
+            if os.path.exists(f):
+                os.remove(f)
+    emit("cli_phase", card=card, **out)
+
+
+def persist_phase(card: str) -> None:
+    """save_factor → load_factor onto the card → solve, bit for bit the
+    original factor's solve; load_symbolic → factor, bit for bit the
+    original factor (poisson3d(32), 'mega': its kernels are deterministic).
+    The checkpoint files are removed afterwards."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.utils.persist import (load_factor, load_symbolic,
+                                               save_factor)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    a = st.poisson3d(32)
+    b = np.random.default_rng(SEED + 11).standard_normal((a.n, 4))
+    num = st.factor(st.analyse(a, main_options(32, "mega")))
+    x = st.solve(num, b)
+    path = os.path.join(OUT_DIR, "factor.npz")
+    try:
+        t0 = time.perf_counter()
+        save_factor(path, num)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        num2 = load_factor(path)
+        t_load = time.perf_counter() - t0
+        require(num2.pool.is_cuda and num2.pool.dtype == torch.float32,
+                "load_factor did not put a float32 pool on the card")
+        require(torch.equal(num2.pool, num.pool),
+                "the reloaded pool differs from the saved one")
+        x2 = st.solve(num2, b)
+        require(np.array_equal(x2, x), "the reloaded factor's solve is not "
+                                       "bit for bit the original's")
+        symb2 = load_symbolic(path + ".symb.npz")
+        num3 = st.factor(symb2)
+        require(torch.equal(num3.pool, num.pool), "the refactorization of "
+                "load_symbolic's object differs from the original factor")
+        nbytes = os.path.getsize(path) + os.path.getsize(path + ".symb.npz")
+    finally:
+        for f in (path, path + ".symb.npz"):
+            if os.path.exists(f):
+                os.remove(f)
+    emit("persist_phase", card=card, matrix="poisson3d(32)", schedule="mega",
+         save_s=t_save, load_s=t_load, file_bytes=nbytes,
+         bwd_err=bwd_err(a, x2, b), solve_bit_for_bit=True,
+         refactor_bit_for_bit=True)
+
+
+def device_trace_phase(card: str) -> None:
+    """One 'mega' factor + solve of poisson3d(32) under
+    ``utils.tracing.device_trace``: the exported Chrome trace must name the
+    launches of both stream kernels."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.utils.tracing import device_trace
+
+    a = st.poisson3d(32)
+    b = np.random.default_rng(SEED + 12).standard_normal((a.n, 4))
+    symb = st.analyse(a, main_options(32, "mega"))
+    st.solve(st.factor(symb), b)             # tables built outside the trace
+    logdir = os.path.join(OUT_DIR, "device_trace")
+    with device_trace(logdir) as prof:
+        x = st.solve(st.factor(symb), b)
+        torch.cuda.synchronize()
+    require(bwd_err(a, x, b) <= BWD_ERR_MAX, "traced run: bwd_err")
+    path = os.path.join(logdir, "trace.json")
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if k + "_kernel" in n)
+             for k in ("mega_factor", "mega_solve")}
+    for k, v in found.items():
+        require(v, f"the device trace names no {k} launch")
+    from torch.autograd import DeviceType
+
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    emit("device_trace", card=card, matrix="poisson3d(32)", file=path,
+         trace_bytes=os.path.getsize(path), kernels=found,
+         device_kernel_ms=dev_ms)
+
+
+def entry_phases(card: str, large: bool) -> list:
+    """The phases of ``--entry-only`` (also part of the full run); returns
+    the ``kernels`` rows of K1 at the coarse fronts."""
+    rows = []
+    for m in (32, 64) if large else (32,):
+        rows += coarse_phase(m, card)
+    cli_phase(card, large)
+    persist_phase(card)
+    device_trace_phase(card)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-large", action="store_true",
@@ -2003,6 +2344,11 @@ def main() -> int:
     ap.add_argument("--no-run-times", action="store_true",
                     help="with --solve-only: skip the per-run times (for a "
                          "tree whose solve stream has no work_items)")
+    ap.add_argument("--entry-only", action="store_true",
+                    help="only the entry-point phases: coarse dense "
+                         "subtrees (poisson3d 32 and 64, both schedules, "
+                         "K1 on every front bucket), the CLI, checkpoints "
+                         "and the device trace")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -2029,6 +2375,10 @@ def main() -> int:
         return factor_only(card, not args.no_large, t_start)
     if args.scan_only:
         return scan_only(card, not args.no_large, t_start, args.levels_out)
+    if args.entry_only:
+        print(json.dumps({"kernels": entry_phases(card, not args.no_large)}),
+              flush=True)
+        return finish(t_start)
 
     # level path (schedule='scan') and its four kernels
     rec, num, fex, sex = main_path(32, card, True, "scan")
@@ -2127,7 +2477,15 @@ def main() -> int:
             del num, fex, sex
             torch.cuda.empty_cache()
 
+    # coarse dense subtrees, the CLI, checkpoints and the device trace
+    kernels += entry_phases(card, not args.no_large)
     print(json.dumps({"kernels": kernels}), flush=True)
+    return finish(t_start)
+
+
+def finish(t_start: float) -> int:
+    """The closing lines: elapsed time, the card's name and power limit, and
+    the result line."""
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ Jobs (reference job table, include/spllt_iface.h):
 Device rule: ``Options.device`` (None means "cuda") names where the pool
 and the executors live.  ``factor`` raises ``RuntimeError`` when a CUDA
 device is asked for and none is available; it never carries on on the CPU.
+
+``Options(coarse_subtrees=True)`` runs the dense phase
+(:mod:`.numeric.subtree`) on the assembled pool before whichever factor
+executor follows; ``Options(timers=True)`` / ``Options(trace=True)`` time
+and trace ``factor`` and ``solve`` (:func:`_diag`, as ``spllt_tpu.api``).
 """
 
 from __future__ import annotations
@@ -53,31 +58,22 @@ class NumericFactor:
     def mode(self) -> str:
         return self.options.mode
 
+    @property
+    def trace_log(self):
+        """TraceLog accumulated under Options(trace=True), else None."""
+        return getattr(self.options, "_trace_log", None)
+
 
 def _torch_dtype(options: Options) -> torch.dtype:
     return torch.float64 if options.dtype == "float64" else torch.float32
 
 
 def _check_ported(options: Options) -> None:
-    """The parts of the option space that are not ported yet raise; they do
-    not fall back to the level executors silently."""
+    """The part of the option space that is not ported yet raises; it does
+    not fall back to one device silently."""
     if options.ndevices > 1:
         raise NotImplementedError(
             "not ported yet: Options(ndevices > 1) (multi-device forest)")
-    if options.coarse_subtrees:
-        raise NotImplementedError(
-            "not ported yet: Options(coarse_subtrees=True) (dense leaf "
-            "subtrees)")
-    defaults = Options()
-    for name in ("coarse_span", "coarse_waste"):
-        if getattr(options, name) != getattr(defaults, name):
-            raise NotImplementedError(
-                f"not ported yet: Options({name}=...) (dense leaf "
-                "subtrees)")
-    for name in ("trace", "timers"):
-        if getattr(options, name):
-            raise NotImplementedError(
-                f"not ported yet: Options({name}=True) (diagnostics)")
 
 
 def _resolve_device(options: Options) -> torch.device:
@@ -92,18 +88,33 @@ def _resolve_device(options: Options) -> torch.device:
     return canonical_device(dev)
 
 
+def _coarse_key(options: Options):
+    """What the factor plan's coarse layer depends on (None when off)."""
+    if not options.coarse_subtrees:
+        return None
+    return (options.coarse_span, options.coarse_waste)
+
+
 def _plans(symb: SymbolicFactor, options: Options):
     """Plans for (symb, blocking options) — cached on the symbolic object
     so repeated refactorizations (the reference's akeep-reuse pipeline,
     doc/source/subroutines.rst:37-75) pay the plan build once."""
-    key = ("plans", options.nb)
+    coarse_key = _coarse_key(options)
+    key = ("plans", options.nb, coarse_key)
     cache = getattr(symb, "_cache", None)
     if cache is None:
         cache = symb._cache = {}
     if key in cache:
         return cache[key]
     plan = build_block_plan(symb, options.nb)
-    fplan = build_factor_plan(symb, plan)
+    coarse = None
+    if coarse_key is not None:
+        from .analyse.coarsen import coarse_partition
+
+        coarse = coarse_partition(symb.forest, symb.node_flops,
+                                  max_span=options.coarse_span,
+                                  waste=options.coarse_waste)
+    fplan = build_factor_plan(symb, plan, coarse=coarse)
     splan = build_solve_plan(symb, plan)
     cache[key] = (plan, fplan, splan)
     return cache[key]
@@ -121,10 +132,46 @@ def _solve_mega_plan(symb: SymbolicFactor, plan: BlockPlan):
 
 
 def _exec_key(kind: str, options: Options, dev: torch.device):
-    # 'scan' and 'unrolled' share the level executors; 'mega' has its own
+    # 'scan' and 'unrolled' share the level executors; 'mega' has its own.
+    # The factor plan, and so the factor executor, depends on the coarse
+    # layer; the solve plan does not.
     family = "mega" if options.schedule == "mega" else "level"
-    return (kind, family, options.nb, options.dtype, options.precision,
-            str(dev))
+    key = (kind, family, options.nb, options.dtype, options.precision,
+           str(dev))
+    return key if kind == "sex" else key + (_coarse_key(options),)
+
+
+def _diag(options: Options, name: str, flops: float = 0.0):
+    """Phase context for Options.timers/trace (ref timer_mod/trace_mod):
+    timers feed the global registry (utils.timers.print_timers /
+    timer_csv); trace events accumulate on the options' TraceLog (dump via
+    num.trace_log.dump/dump_paje).  Both read the host clock, which the
+    phases keep honest: each ends in a host synchronisation."""
+    import contextlib
+
+    if not (options.timers or options.trace):
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    if options.timers:
+        from .utils.timers import timer
+
+        stack.enter_context(timer(name, flops=flops))
+    if options.trace:
+        tl = getattr(options, "_trace_log", None)
+        if tl is None:
+            from .utils.tracing import TraceLog
+
+            tl = TraceLog()
+            object.__setattr__(options, "_trace_log", tl)
+        stack.enter_context(tl.event(name))
+    return stack
+
+
+def trace_log(obj):
+    """The TraceLog accumulated under Options(trace=True) for this
+    Options/NumericFactor (None if tracing is off)."""
+    opts = obj.options if hasattr(obj, "options") else obj
+    return getattr(opts, "_trace_log", None)
 
 
 def _factor_executor(fplan: FactorPlan, options: Options, dtype, dev):
@@ -146,6 +193,12 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
     (the akeep-reuse workflow of the reference)."""
     options = options or symb.options
     _check_ported(options)
+    with _diag(options, "factor", flops=float(symb.inform.num_flops)):
+        return _factor_impl(symb, a, options)
+
+
+def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
+                 options: Options) -> NumericFactor:
     values = (symb.a_perm.values if a is None
               else _permuted_values(symb, a))
     plan, fplan, splan = _plans(symb, options)
@@ -160,6 +213,10 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
         from .numeric.stf import factorize_np
 
         pool = assemble_np(plan, values, dtype=np.float64)
+        if fplan.dense:
+            from .numeric.subtree import subtree_np
+
+            pool = subtree_np(pool, np.asarray(values, np.float64), fplan)
         pool = factorize_np(pool, fplan)
         solve_execs = {}
     else:
@@ -175,7 +232,18 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
             ex = symb._cache[ekey] = _factor_executor(fplan, options, dtype,
                                                       dev)
         pool = assemble_torch(plan, values, dtype, dev)
+        dense_bad = None
+        if fplan.dense:
+            dkey = ("dense", options.nb, str(dev), _coarse_key(options))
+            dx = symb._cache.get(dkey)
+            if dx is None:
+                from .numeric.subtree import DenseSubtreeExecutor
+
+                dx = symb._cache[dkey] = DenseSubtreeExecutor(fplan, dev)
+            pool, dense_bad = dx(pool)
         pool, notpos = ex(pool)
+        if dense_bad is not None:
+            notpos = notpos | dense_bad
         # positive-definiteness flag computed on the device (one scalar
         # crosses; this is also the synchronisation point of the factor)
         if bool(notpos):
@@ -209,6 +277,12 @@ def solve(num: NumericFactor, b: np.ndarray, job: int = 0,
     device the pool lies on; otherwise, and in stf mode, the residuals are
     computed on the host.
     """
+    with _diag(num.options, f"solve(job={job})"):
+        return _solve_impl(num, b, job, refine)
+
+
+def _solve_impl(num: NumericFactor, b, job: int,
+                refine: int | None) -> np.ndarray:
     b = np.asarray(b)
     symb = num.symb
     n = symb.n

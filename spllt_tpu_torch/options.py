@@ -11,10 +11,9 @@ Every field of ``spllt_tpu.options.Options`` is here, with the same name,
 default and validation, so one set of keyword arguments configures either
 package; ``device`` is new.  The knobs that steer only the JAX package's
 TPU kernels (``pallas_updates``, ``pallas_hmax``, ``solve_group``) are
-accepted and have no effect on this card.  The options of parts not ported
-yet (``trace``, ``timers``, non-default ``coarse_span`` / ``coarse_waste``,
-``coarse_subtrees``, ``ndevices`` > 1) are accepted here and raise
-``NotImplementedError`` in ``factor``.
+accepted and have no effect on this card.  ``ndevices`` > 1, the part not
+ported yet, is accepted here and raises ``NotImplementedError`` in
+``factor``.
 """
 
 from __future__ import annotations
@@ -37,10 +36,9 @@ class Options:
     grid_shape: tuple | None = None  # for 'nd-grid'
     prune_tree: bool = True  # subtree coarsening (ref prune_tree)
     coarse_subtrees: bool = False  # batched dense leaf-subtree phase
-    #   (not ported yet: True raises NotImplementedError in factor)
-    coarse_span: int = 256   # max dense front size |V|+|B| (with
-    coarse_waste: float = 8.0  # the dense/sparse flop waste bound: not
-    #   ported yet, a non-default value raises NotImplementedError in factor)
+    #   (numeric/subtree.py), before the factor executor
+    coarse_span: int = 256   # max dense front size |V|+|B|
+    coarse_waste: float = 8.0  # the dense/sparse flop waste bound
     # execution -------------------------------------------------------------
     mode: str = "batched"    # 'batched' (level schedule on ``device``) |
     #   'stf' (float64 NumPy oracle on the host)
@@ -61,9 +59,9 @@ class Options:
     solve_group: int | None = None  # the TPU solve kernel's micro-tasks per
     #   grid step; no effect here (the solve stream kernel has no grid steps)
     # diagnostics -----------------------------------------------------------
-    trace: bool = False      # event tracing (not ported yet: True raises
-    #   NotImplementedError in factor)
-    timers: bool = False     # step timers (not ported yet, likewise)
+    trace: bool = False      # event tracing of factor/solve (TraceLog,
+    #   read through NumericFactor.trace_log)
+    timers: bool = False     # step timers of factor/solve (utils/timers)
     device: str | None = None  # torch device of the pool and executors;
     #   None means "cuda".  factor raises RuntimeError when a CUDA device is
     #   asked for and none is available: it never carries on on the CPU.

@@ -183,18 +183,12 @@ def test_default_device_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("kw", [dict(schedule="mega", ndevices=2),
-                                dict(ndevices=2),
-                                dict(coarse_subtrees=True),
-                                dict(coarse_span=128),
-                                dict(coarse_waste=2.0),
-                                dict(trace=True),
-                                dict(timers=True)],
-                         ids=["mega", "ndevices", "coarse_subtrees",
-                              "coarse_span", "coarse_waste", "trace",
-                              "timers"])
+                                dict(ndevices=2)],
+                         ids=["mega", "ndevices"])
 def test_not_ported_options_raise(kw):
     """schedule='mega' itself is ported; across devices it is not, like
-    the level path."""
+    the level path.  (The coarse, trace and timers options are ported:
+    tests/test_torch_coarse.py and tests/test_torch_cli.py run them.)"""
     symb = st.analyse(st.poisson2d(6), st.Options(nb=8, device="cpu"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         st.factor(symb, options=st.Options(nb=8, device="cpu", **kw))
