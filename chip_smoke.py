@@ -2025,11 +2025,12 @@ def dense_kernel_rows(dx, pool0, matrix, launches, tol=1e-5, reps=5):
     ``pool0``) against its plain version, timed as the host issues the
     launch (``ms``) and on the device alone (``device_ms``); bound: bytes
     (every front written whole, the trapezoid of its kv columns read) over
-    the memory rate against its operations over the float32 rate."""
+    the memory rate against its operations over the float32 rate.
+    ``launches[i]``: bucket i's K1 launches counted in the coarse runs."""
     from spllt_tpu_torch.numeric import hopper_potrf
 
     rows = []
-    for t in dx.buckets:
+    for t, n in zip(dx.buckets, launches):
         fronts, kv = dx.fronts(pool0, t), t["kvec"]
         sp = t["spad"]
         name = f"potrf (coarse fronts, spad {sp}, {matrix})"
@@ -2047,7 +2048,7 @@ def dense_kernel_rows(dx, pool0, matrix, launches, tol=1e-5, reps=5):
                          "pallas_potrf.py:167", acc,
                          "the bucket's one launch of a coarse factorization",
                          f"fronts [{t['nsub']},{sp},{sp}], kv up to "
-                         f"{int(kv.max())}", {"potrf": launches}, tol)
+                         f"{int(kv.max())}", {"potrf": n}, tol)
         # a float32 front of spad 256 does not fit a block's shared memory
         row.update(name=name, path=f"{'shared' if sp <= 128 else 'global'}"
                                     "-memory elimination")
@@ -2064,7 +2065,7 @@ def coarse_phase(m: int, card: str):
     positive definite, and K1 on each bucket's real fronts.  Returns the
     ``kernels`` rows of K1 at the fronts' shapes."""
     import spllt_tpu_torch as st
-    from spllt_tpu_torch.api import _coarse_key, _exec_key
+    from spllt_tpu_torch.api import _dense_key, _exec_key
     from spllt_tpu_torch.numeric import hopper_potrf
     from spllt_tpu_torch.numeric.assemble import assemble_torch
 
@@ -2080,10 +2081,16 @@ def coarse_phase(m: int, card: str):
                host_analyse_s=t_analyse, card=card)
     for w in wrappers.values():
         w.launches = 0
-    per, dx, pool0 = {}, None, None
+    per, dx, pool0, bucket_launches = {}, None, None, None
     for schedule in ("scan", "mega"):
         opts = main_options(m, schedule, coarse_subtrees=True)
         plain_opts = main_options(m, schedule)
+        # the dense executor serves both schedules: its per-bucket counts
+        # are zeroed with the wrappers' (a new executor starts at 0)
+        dkey = _dense_key(opts, dev)
+        known = getattr(symb, "_cache", {}).get(dkey)
+        for t in (known.buckets if known is not None else ()):
+            t["launches"] = 0
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -2091,6 +2098,12 @@ def coarse_phase(m: int, card: str):
         first_factor_s = time.perf_counter() - t0
         x = st.solve(num, b)
         launches = {k: int(w.launches) for k, w in wrappers.items()}
+        dx = symb._cache[dkey]
+        counted = [int(t["launches"]) for t in dx.buckets]
+        require(counted == [1] * len(counted), f"coarse {schedule}: K1 "
+                f"launches per bucket {counted}, not one each")
+        bucket_launches = [c + p for c, p in
+                           zip(counted, bucket_launches or [0] * len(counted))]
         err = bwd_err(a, x, b)
         require(err <= BWD_ERR_MAX, f"coarse {schedule}: refined backward "
                                     f"error {err} > {BWD_ERR_MAX}")
@@ -2114,7 +2127,6 @@ def coarse_phase(m: int, card: str):
         require(rel <= 1e-5, f"coarse {schedule}: factor differs from the "
                              f"non-coarse factor: rel {rel}")
         pfex = symb._cache[_exec_key("fex", plain_opts, dev)]
-        dx = symb._cache[("dense", 128, str(dev), _coarse_key(opts))]
 
         def assembled():
             return assemble_torch(num.plan, num.values_perm, torch.float32,
@@ -2135,7 +2147,8 @@ def coarse_phase(m: int, card: str):
             raise AssertionError(f"coarse {schedule}: a front that is not "
                                  "positive definite did not raise")
         per[schedule] = dict(
-            buckets=buckets, launches=launches, bwd_err=err,
+            buckets=buckets, launches=launches,
+            bucket_potrf_launches=counted, bwd_err=err,
             vs_non_coarse_max_abs=mabs, vs_non_coarse_rel=rel,
             factor_ms=factor_ms, non_coarse_factor_ms=plain_factor_ms,
             dense_phase_ms=dense_ms, first_factor_s=first_factor_s,
@@ -2160,8 +2173,8 @@ def coarse_phase(m: int, card: str):
                                           in zip(dx.buckets, lfs)], 3),
         dense_tiles=int(sum(t["blk"].shape[0] for t in dx.buckets)))
     del work, lfs, fronts
-    # each bucket: one launch in each of the two coarse factorizations
-    rows = dense_kernel_rows(dx, pool0, rec["matrix"], 2)
+    # each bucket's K1 launches, counted over both coarse factor + solves
+    rows = dense_kernel_rows(dx, pool0, rec["matrix"], bucket_launches)
     emit("coarse_phase", **rec, **per,
          potrf_fronts=[{k: r[k] for k in ("name", "max_abs_err", "rel_err",
                                            "ms", "device_ms", "plain_ms",

@@ -141,6 +141,12 @@ def _exec_key(kind: str, options: Options, dev: torch.device):
     return key if kind == "sex" else key + (_coarse_key(options),)
 
 
+def _dense_key(options: Options, dev: torch.device):
+    """Cache key of the dense phase's executor (coarse_subtrees=True): it
+    serves both schedules, so the schedule is not part of it."""
+    return ("dense", options.nb, str(dev), _coarse_key(options))
+
+
 def _diag(options: Options, name: str, flops: float = 0.0):
     """Phase context for Options.timers/trace (ref timer_mod/trace_mod):
     timers feed the global registry (utils.timers.print_timers /
@@ -234,7 +240,7 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
         pool = assemble_torch(plan, values, dtype, dev)
         dense_bad = None
         if fplan.dense:
-            dkey = ("dense", options.nb, str(dev), _coarse_key(options))
+            dkey = _dense_key(options, dev)
             dx = symb._cache.get(dkey)
             if dx is None:
                 from .numeric.subtree import DenseSubtreeExecutor

@@ -28,7 +28,7 @@ import torch
 
 from ..errors import NotPositiveDefiniteError
 from .factor_scan import canonical_device
-from .hopper_potrf import potrf
+from . import hopper_potrf
 
 __all__ = ["subtree_np", "DenseSubtreeExecutor"]
 
@@ -81,6 +81,10 @@ class DenseSubtreeExecutor:
     on the way in and zeros on the way out, so every gather and store is
     a plain indexed one with no mask.  The tables do not depend on the
     values; one executor serves every refactorization of the pattern.
+
+    Each bucket's ``launches`` counts the potrf kernel launches its fronts
+    were given, read from the wrapper's own count around the call (so it
+    stays 0 where the wrapper runs its plain version, on the CPU).
     """
 
     # tiles moved per indexed gather or store: bounds the temporaries
@@ -98,7 +102,7 @@ class DenseSubtreeExecutor:
             i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
                                             device=dev)
             self.buckets.append(dict(
-                spad=sp, nsub=int(b["nsub"]),
+                spad=sp, nsub=int(b["nsub"]), launches=0,
                 kvec=torch.as_tensor(np.asarray(b["kvec"], np.int32),
                                      device=dev),
                 blk=i64(b["sc_blk"]), sub=i64(b["sc_sub"]).view(-1, 1, 1),
@@ -140,7 +144,9 @@ class DenseSubtreeExecutor:
                              f"got {pool.device}")
         bad = torch.zeros((), dtype=torch.bool, device=pool.device)
         for t in self.buckets:
-            lf = potrf(self.fronts(pool, t), t["kvec"])
+            before = hopper_potrf.potrf.launches
+            lf = hopper_potrf.potrf(self.fronts(pool, t), t["kvec"])
+            t["launches"] += hopper_potrf.potrf.launches - before
             bad = bad | torch.isnan(lf[:, 0, 0]).any()
             self.scatter(pool, t, lf)
         return pool, bad

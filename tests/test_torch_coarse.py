@@ -18,7 +18,7 @@ from spllt_tpu.analyse.coarsen import coarse_partition as partition_j
 from spllt_tpu.api import _plans as plans_j
 from spllt_tpu.numeric.subtree import subtree_np as subtree_np_j
 from spllt_tpu_torch.analyse.coarsen import coarse_partition as partition_t
-from spllt_tpu_torch.api import _plans as plans_t
+from spllt_tpu_torch.api import _dense_key, _plans as plans_t
 from spllt_tpu_torch.numeric.assemble import assemble_np, assemble_torch
 from spllt_tpu_torch.numeric.subtree import DenseSubtreeExecutor, subtree_np
 from spllt_tpu_torch.utils import timers
@@ -124,6 +124,8 @@ def test_dense_executor_matches_oracle(name):
         touched[t["blk"].numpy()] = True
     assert np.array_equal(got.numpy()[~touched],
                           assemble_np(plan, vals)[~touched])
+    # on the CPU the wrapper runs its plain version: no launch is counted
+    assert [t["launches"] for t in ex.buckets] == [0] * len(ex.buckets)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -221,6 +223,7 @@ def test_cache_keys_follow_the_coarse_options(schedule):
     assert len(fex) == 3 and len({id(e.fp) for e in fex}) == 3
     dense = [k for k in symb._cache if k[0] == "dense"]
     assert len(dense) == 2
+    assert _dense_key(nums[1].options, torch.device("cpu")) in dense
 
 
 @pytest.mark.parametrize("mode,schedule", [("stf", "scan"),
