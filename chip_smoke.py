@@ -17,6 +17,8 @@
                                           # --levels-out FILE for every
                                           # per-level row)
     python3 chip_smoke.py --entry-only    # only step 6: the entry points
+    python3 chip_smoke.py --forest-only   # only step 7: Options(ndevices=k),
+                                          # the rhs-sharded solve, the C API
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -74,7 +76,22 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      bit for bit, and refactorized from its symbolic file bit for bit; and
      one 'mega' factor + solve under ``utils.tracing.device_trace``, whose
      trace must name both stream kernels.  Files go to
-     ``chiprun_out/entry/``; the checkpoint and the matrix files are removed.
+     ``chiprun_out/entry/``; the checkpoint and the matrix files are removed;
+  7. drives the multi-device paths (``forest_phase``): ``Options(ndevices=k)``
+     through ``factor``/``solve`` — on k cards when they are visible, else on
+     ``factor(..., devices=[cuda:0] * k)`` after checking that
+     ``Options(ndevices=k)`` raises ``ValueError`` rather than run elsewhere
+     — at poisson3d(64) 'mega' k = 2 and 4 and poisson3d(32) 'scan' k = 2
+     and 4, 'mega' k = 2 (twice, bit for bit) and 'mega' k = 2 in float64,
+     each held against the single-device factor of its schedule (1e-5 of
+     max|L|, 1e-11 in float64) with its executors per shard, its launches
+     per kernel (exactly as many as the executors call for), the refined
+     backward error and the times of its phases (32³ k = 2 also against the
+     plain versions on the card and with a negative pivot in a shard and in
+     the top); the rhs-sharded solve at poisson3d(64),
+     nrhs 64, over 2 and 4 shards; and ``examples/c/simple.c`` built
+     against the C interface's library (``native/capi.cpp``) and run on the
+     card.
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -83,6 +100,8 @@ One JSON object per line; any failed check raises and the exit code is not
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -2337,6 +2356,360 @@ def entry_phases(card: str, large: bool) -> list:
     return rows
 
 
+# --------------------------------------------------------------------- #
+# the forest path (Options(ndevices=k)), the rhs-sharded solve, the C API
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_kernels():
+    """The factor executors' kernel wrappers replaced by their plain
+    versions, so that a factorization runs them on the card's tensors."""
+    from unittest import mock
+
+    from spllt_tpu_torch.numeric import (factor_scan, hopper_potrf,
+                                         hopper_trsm, hopper_update,
+                                         megakernel)
+
+    with mock.patch.multiple(factor_scan, potrf=hopper_potrf.potrf_plain,
+                             trsm=hopper_trsm.trsm_plain,
+                             apply_updates=hopper_update.apply_updates_plain), \
+            mock.patch.object(megakernel, "mega_factorize",
+                              megakernel.mega_factorize_plain):
+        yield
+
+
+def forest_options(m: int, schedule: str, k: int, dtype: str = "float32"):
+    return dataclasses.replace(main_options(m, schedule), ndevices=k,
+                               dtype=dtype)
+
+
+def forest_devices(k: int, ncards: int, symb, opts):
+    """None (the device rule of Options(ndevices=k)) when k cards are
+    visible; else [cuda:0] * k, after checking that Options(ndevices=k)
+    refuses to run rather than run elsewhere."""
+    import spllt_tpu_torch as st
+
+    if ncards >= k:
+        return None
+    try:
+        st.factor(symb, options=opts)
+    except ValueError:
+        return [torch.device("cuda", 0)] * k
+    raise AssertionError(f"Options(ndevices={k}) ran with {ncards} card(s)")
+
+
+def forest_expected_launches(fx, refine: int) -> dict:
+    """What the wrappers must count in one factorization and in one refined
+    solve (refine + 1 sweeps each way) of the forest executor ``fx``: a
+    stream executor launches once if its stream has runs, a level executor
+    once per level that has tasks of the kernel's kind."""
+    local, top = fx.solvers()
+    fexs, sexs = fx.local_ex + [fx.top_ex], local + [top]
+    if fx.mega:
+        return {"mega_factor": sum(ex.num_runs > 0 for ex in fexs),
+                "mega_solve": (refine + 1) * sum(
+                    s["run_kind"].shape[0] > 0 for ex in sexs
+                    for s in ex._streams)}
+    return {"potrf": sum("potrf" in lv for ex in fexs for lv in ex.levels),
+            "trsm": sum("trsm" in lv for ex in fexs for lv in ex.levels),
+            "update": sum("upd" in lv for ex in fexs for lv in ex.levels),
+            "left_solve": (refine + 1) * sum(
+                "sol" in lv for ex in sexs
+                for lv in ex._fwd_levels + ex._bwd_levels)}
+
+
+def forest_pool_err(pools, md, ref: torch.Tensor):
+    """max |local block − the single-device factor's block| over every
+    device's blocks (the top from the first device), and that over
+    max |L|; the tops of all devices must be bit for bit equal."""
+    part = md.part
+    mabs = 0.0
+    for d, p in enumerate(pools):
+        require(torch.equal(p[:part.ntop], pools[0][:part.ntop]),
+                f"the top of device {d} differs from the first device's")
+        sel = np.flatnonzero((part.blk_dev == d)
+                             | ((part.blk_dev == -1) & (d == 0)))
+        li = torch.as_tensor(part.blk_local[sel], device=p.device)
+        gi = torch.as_tensor(sel, device=ref.device)
+        mabs = max(mabs, float((p[li].to(ref.device) - ref[gi]).abs().max()))
+    return mabs, mabs / float(ref.abs().max())
+
+
+def forest_times(num, b) -> dict:
+    """CUDA-event times of the forest factorization (as a whole and by
+    phase: A per shard, B, C) and of one unrefined solve, and the host wall
+    time of the refined solve."""
+    import spllt_tpu_torch as st
+
+    fx = num.mdf
+    values = num.values_perm
+    pools0, top0 = fx.assemble(values)
+    work = [p.clone() for p in pools0]
+
+    def restore(src):
+        for w, s in zip(work, src):
+            w.copy_(s)
+
+    out = dict(
+        factor_ms=time_ms(lambda: fx.factor(values), 3),
+        assemble_ms=time_ms(lambda: fx.assemble(values), 3),
+        phase_a_ms=[time_prepared_ms(lambda d=d: work[d].copy_(pools0[d]),
+                                     lambda d=d: fx.local_ex[d](work[d]), 3)
+                    for d in range(len(work))])
+    restore(pools0)
+    fx.run_local(work)
+    after = [w.clone() for w in work]
+    out["phase_b_ms"] = time_prepared_ms(lambda: restore(after),
+                                         lambda: fx.reduce_top(work, top0), 3)
+    after = [w.clone() for w in work]
+    out["phase_c_ms"] = time_prepared_ms(lambda: restore(after),
+                                         lambda: fx.run_top(work), 3)
+    del work, after, pools0
+    n = num.symb.n
+    xp = torch.zeros((n + 1, b.shape[1]), dtype=fx.dtype,
+                     device=fx.devices[0])
+    xp[:n] = torch.as_tensor(b[num.symb.perm], device=xp.device)
+    out["solve_fwd_bwd_ms"] = time_ms(lambda: fx.solve(num.pool, xp, 0), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.solve(num, b)
+    out["refined_solve_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def forest_run(symb, a, b, opts, ncards: int, ref_pool, plain_check: bool,
+               rerun: bool):
+    """One forest factor + refined solve of ``opts`` (through Options when
+    the cards are there, else on [cuda:0] * k) with its checks, launches
+    and times; returns (record, kernel launches)."""
+    import spllt_tpu_torch as st
+
+    wrappers = kernel_wrappers()
+    k = opts.ndevices
+    devices = forest_devices(k, ncards, symb, opts)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    num = st.factor(symb, options=opts, devices=devices)
+    torch.cuda.synchronize()
+    first_factor_s = time.perf_counter() - t0
+    launches = {nm: int(w.launches) for nm, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    x = st.solve(num, b)
+    first_solve_s = time.perf_counter() - t0
+    for nm, w in wrappers.items():
+        launches[nm] += int(w.launches)
+    fx = num.mdf
+    tag = f"{opts.schedule} k={k} {opts.dtype}"
+    require(x.shape == b.shape and np.isfinite(x).all(),
+            f"forest {tag}: solution has the wrong shape or is not finite")
+    err = bwd_err(a, x, b)
+    require(err <= BWD_ERR_MAX, f"forest {tag}: refined backward error "
+                                f"{err} > {BWD_ERR_MAX}")
+    fam = "Mega" if opts.schedule == "mega" else "Scan"
+    want = {"factor": [f"{fam}FactorExecutor"] * k,
+            "factor_top": f"{fam}FactorExecutor",
+            "solve": [f"{fam}SolveExecutor"] * k,
+            "solve_top": f"{fam}SolveExecutor"}
+    require(fx.executors() == want, f"forest {tag}: executors "
+                                    f"{fx.executors()}")
+    require(all(p.is_cuda for p in num.pool), f"forest {tag}: a pool is not "
+                                              "on the card")
+    expected = forest_expected_launches(fx, opts.refine)
+    path = {nm: launches[nm] for nm in PATH_KERNELS[opts.schedule]}
+    require(path == expected and all(v > 0 for v in path.values()),
+            f"forest {tag}: launches {path}, expected {expected}")
+    require(not any(v for nm, v in launches.items() if nm not in path),
+            f"forest {tag}: kernels of the other schedule ran: {launches}")
+    tol = 1e-11 if opts.dtype == "float64" else 1e-5
+    mabs, rel = forest_pool_err(num.pool, fx.md, ref_pool)
+    require(rel <= tol, f"forest {tag}: global pool differs from the "
+                        f"single-device factor: rel {rel} > {tol}")
+    part = fx.md.part
+    rec = dict(
+        schedule=opts.schedule, ndevices=k, dtype=opts.dtype,
+        devices=[str(d) for d in fx.devices],
+        route="Options(ndevices)" if devices is None else
+        "factor(devices=[cuda:0] * k)",
+        shards_share_one_card=len(set(map(str, fx.devices))) < k,
+        ntop=part.ntop, nown=[int(c) for c in part.nown],
+        executors=fx.executors(), launches=path, bwd_err=err,
+        vs_single_device_max_abs=mabs, vs_single_device_rel=rel,
+        first_factor_s=first_factor_s, first_solve_s=first_solve_s)
+    if plain_check:
+        with plain_kernels():
+            pools_plain, _ = fx.factor(num.values_perm)
+        worst = max(rel_err(p, q)[1] for p, q in zip(num.pool, pools_plain))
+        require(worst <= 1e-5, f"forest {tag}: the kernels' factor differs "
+                               f"from the plain versions': rel {worst}")
+        rec["vs_plain_versions_rel"] = worst
+        del pools_plain
+        # a negative pivot in a shard's first leaf, and one in the top
+        diag = np.flatnonzero(a.rowind == np.repeat(np.arange(a.n),
+                                                    np.diff(a.colptr)))
+        for col in (symb.perm[0], symb.perm[-1]):
+            vals = a.values.copy()
+            vals[diag[col]] = -1.0
+            try:
+                st.factor(symb, st.CscMatrix(a.n, a.colptr, a.rowind, vals),
+                          options=opts, devices=devices)
+            except st.NotPositiveDefiniteError:
+                pass
+            else:
+                raise AssertionError(f"forest {tag}: a negative pivot in "
+                                     f"column {col} did not raise")
+        rec["indefinite_raises"] = True
+    if rerun:
+        again = st.factor(symb, options=opts, devices=devices)
+        require(all(torch.equal(p, q) for p, q in zip(again.pool, num.pool)),
+                f"forest {tag}: a second factorization is not bit for bit "
+                "the first")
+        require(np.array_equal(st.solve(again, b), x),
+                f"forest {tag}: a second solve is not bit for bit the first")
+        rec["rerun_bit_for_bit"] = True
+        del again
+    rec.update(forest_times(num, b))
+    del num
+    return rec, path
+
+
+def rhs_sharded_run(num, a, ncards: int) -> dict:
+    """solve_rhs_sharded at nrhs 64 over 2 and 4 shards of the
+    single-device factor ``num``, against its own refined solve."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.parallel.rhs import solve_rhs_sharded
+
+    left_solve = kernel_wrappers()["left_solve"]
+    b = np.random.default_rng(SEED + 21).standard_normal((a.n, 64))
+    x1 = st.solve(num, b)
+    out = {}
+    for k in (2, 4):
+        devices = [torch.device("cuda", i if ncards >= k else 0)
+                   for i in range(k)]
+        if ncards < k:
+            try:
+                solve_rhs_sharded(num, b, ndev=k)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"solve_rhs_sharded(ndev={k}) ran with "
+                                     f"{ncards} card(s)")
+        left_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = solve_rhs_sharded(num, b, devices=devices)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = int(left_solve.launches)
+        require(launches > 0, f"rhs-sharded k={k}: K5 was never launched")
+        err = bwd_err(a, x, b)
+        require(err <= BWD_ERR_MAX, f"rhs-sharded k={k}: bwd_err {err}")
+        rel = float(np.abs(x - x1).max() / np.abs(x1).max())
+        require(rel <= 1e-8, f"rhs-sharded k={k}: differs from the "
+                             f"single-device solve by {rel}")
+        t0 = time.perf_counter()
+        solve_rhs_sharded(num, b, devices=devices)
+        out[f"k={k}"] = dict(
+            devices=[str(d) for d in devices], launches={"left_solve":
+                                                         launches},
+            bwd_err=err, vs_single_device_rel=rel, first_wall_ms=wall_ms,
+            refined_wall_ms=(time.perf_counter() - t0) * 1e3,
+            shards_share_one_card=ncards < k)
+    return out
+
+
+def capi_run(card: str) -> dict:
+    """examples/c/simple.c linked against the port's C library (built from
+    native/capi.cpp) and run on the card: exit 0, and its printed error
+    within its own check (max |x − 1| ≤ 1e-10)."""
+    import re
+
+    from spllt_tpu_torch.numeric._build import (build_c_program, build_capi,
+                                                embedded_env)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lib = build_capi()
+    exe = build_c_program(os.path.join(root, "examples", "c", "simple.c"),
+                          os.path.join(os.path.dirname(lib), "simple_c"))
+    build_s = time.perf_counter() - t0
+    env = embedded_env()
+    env.pop("SPLLT_CAPI_DEVICE", None)          # the default: the card
+    t0 = time.perf_counter()
+    p = subprocess.run([exe], env=env, capture_output=True, text=True,
+                       timeout=300, cwd=root)
+    run_s = time.perf_counter() - t0
+    require(p.returncode == 0 and p.stdout.strip().endswith("ok"),
+            f"the C example exited {p.returncode}:\n{p.stdout}\n"
+            f"{p.stderr[-3000:]}")
+    err = float(re.search(r"max \|x - 1\| = (\S+)", p.stdout).group(1))
+    require(err <= 1e-10, f"the C example's error {err} > 1e-10")
+    return dict(card=card, library=os.path.basename(lib), build_s=build_s,
+                run_s=run_s, max_abs_err=err,
+                stdout=p.stdout.strip().splitlines())
+
+
+def forest_phase(card: str, large: bool) -> dict:
+    """The forest path through ``factor``/``solve`` with
+    ``Options(ndevices=k)`` (on [cuda:0] * k when fewer than k cards are
+    visible: said in each record): Poisson 64³ 'mega' f32 at k = 2 and 4
+    (unless not ``large``), 32³ 'scan' at k = 2 and 4, 32³ 'mega' k = 2
+    (rerun bit for bit; the 'scan' and 'mega' k = 2 runs also against the
+    plain versions on the card and with a negative pivot in a shard and in
+    the top) and in float64; each against the
+    single-device factor of its schedule and dtype (whose ``factor_ms`` is
+    timed beside it), with the executors per shard, each kernel's launches
+    (exactly those the executors call for), the refined backward error and
+    the times of every phase.  Then the rhs-sharded solve at the largest
+    size, nrhs 64, over 2 and 4 shards, and the C example on the card.
+    Returns {kernel: {run: launches}}."""
+    import spllt_tpu_torch as st
+
+    ncards = torch.cuda.device_count()
+    emit("forest_cards", card=card, cards_visible=ncards,
+         shards_share_one_card=ncards < 2, note="on one card the shards of "
+         "a phase run one after the other; phase A is timed shard by shard")
+    runs = {64: [("mega", 2, "float32"), ("mega", 4, "float32")],
+            32: [("scan", 2, "float32"), ("scan", 4, "float32"),
+                 ("mega", 2, "float32"), ("mega", 2, "float64")]}
+    launches = {}
+    for m in (64, 32) if large else (32,):
+        a = st.poisson3d(m)
+        b = np.random.default_rng(SEED + 20).standard_normal((a.n, 4))
+        t0 = time.perf_counter()
+        # one symbolic object serves every device count: the partition
+        # prunes the tree for each count itself
+        symb = st.analyse(a, main_options(m, "mega"))
+        t_analyse = time.perf_counter() - t0
+        singles = {}
+        for schedule, k, dtype in runs[m]:
+            if (schedule, dtype) not in singles:
+                opts1 = forest_options(m, schedule, 1, dtype)
+                num1 = st.factor(symb, options=opts1)
+                singles[schedule, dtype] = (num1, time_ms(
+                    lambda: st.factor(symb, options=opts1), 3))
+            num1, single_ms = singles[schedule, dtype]
+            rec, path = forest_run(
+                symb, a, b, forest_options(m, schedule, k, dtype), ncards,
+                num1.pool, plain_check=(m, k, dtype) == (32, 2, "float32"),
+                rerun=(m, schedule, k, dtype) == (32, "mega", 2, "float32"))
+            name = f"{m}^3 {schedule} k={k} {dtype}"
+            emit("forest_run", card=card, matrix=f"poisson3d({m})", nb=128,
+                 nemin=192, refine=2, nrhs=4, host_analyse_s=t_analyse,
+                 single_device_factor_ms=single_ms, **rec)
+            for nm, v in path.items():
+                launches.setdefault(nm, {})[name] = v
+            torch.cuda.empty_cache()
+        if m == (64 if large else 32):
+            emit("rhs_sharded", card=card, matrix=f"poisson3d({m})",
+                 nrhs=64, refine=2, **rhs_sharded_run(
+                     singles["mega", "float32"][0], a, ncards))
+        del singles
+        torch.cuda.empty_cache()
+    emit("capi_round_trip", **capi_run(card))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-large", action="store_true",
@@ -2362,6 +2735,10 @@ def main() -> int:
                          "subtrees (poisson3d 32 and 64, both schedules, "
                          "K1 on every front bucket), the CLI, checkpoints "
                          "and the device trace")
+    ap.add_argument("--forest-only", action="store_true",
+                    help="only the multi-device phase: the forest path "
+                         "(Options(ndevices=k), poisson3d 64 and 32), the "
+                         "rhs-sharded solve and the C interface")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -2391,6 +2768,9 @@ def main() -> int:
     if args.entry_only:
         print(json.dumps({"kernels": entry_phases(card, not args.no_large)}),
               flush=True)
+        return finish(t_start)
+    if args.forest_only:
+        emit("forest_launches", **forest_phase(card, not args.no_large))
         return finish(t_start)
 
     # level path (schedule='scan') and its four kernels
@@ -2492,6 +2872,11 @@ def main() -> int:
 
     # coarse dense subtrees, the CLI, checkpoints and the device trace
     kernels += entry_phases(card, not args.no_large)
+    # the multi-device paths: each kernel's launches per forest run
+    forest = forest_phase(card, not args.no_large)
+    for row in kernels:
+        if row["name"] in forest:
+            row["forest_launches"] = forest[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     return finish(t_start)
 

@@ -6,8 +6,10 @@ which stays in the repository as the reference): host-side symbolic analyse
 (ordering, elimination tree, supernode amalgamation, nb-blocking), a
 statically level-scheduled batched factorization, and a level-scheduled
 forward/backward solve with float64 iterative refinement on the device.
-The four kernels of the level path (potrf, trsm, fused update, left solve)
-are hand-written CUDA C++ (``csrc/``), built at first use.  This package
+Its six kernels (the level path's potrf, trsm, fused update and left solve,
+and the two stream kernels) are hand-written CUDA C++ (``csrc/``), built at
+first use; ``Options(ndevices=k)`` spreads the factorization over k devices
+(``parallel/``), and ``native/capi.cpp`` is its C interface.  This package
 imports torch, numpy and scipy — never jax, and nothing of ``spllt_tpu``.
 
 Public API::

@@ -13,6 +13,12 @@ Jobs (reference job table, include/spllt_iface.h):
 Device rule: ``Options.device`` (None means "cuda") names where the pool
 and the executors live.  ``factor`` raises ``RuntimeError`` when a CUDA
 device is asked for and none is available; it never carries on on the CPU.
+With ``Options(ndevices=k)`` (k > 1, mode 'batched') the factor runs on the
+forest path (:mod:`.parallel.forest`) over the devices of
+:func:`.parallel.device_list`: ``cuda:N … cuda:N+k-1`` for a CUDA device,
+``ValueError`` when fewer cards are visible, and k shards on the CPU for
+``device='cpu'``; its solve refines on the host.  ``mode='stf'`` ignores
+``ndevices``, as the reference does.
 
 ``Options(coarse_subtrees=True)`` runs the dense phase
 (:mod:`.numeric.subtree`) on the assembled pool before whichever factor
@@ -53,6 +59,9 @@ class NumericFactor:
     options: Options
     inform: Inform
     _solve_execs: dict = dataclasses.field(default_factory=dict)
+    # the forest path (Options.ndevices > 1): its ForestExecutor; ``pool``
+    # then holds the list of the devices' local pools
+    mdf: object | None = None
 
     @property
     def mode(self) -> str:
@@ -68,14 +77,6 @@ def _torch_dtype(options: Options) -> torch.dtype:
     return torch.float64 if options.dtype == "float64" else torch.float32
 
 
-def _check_ported(options: Options) -> None:
-    """The part of the option space that is not ported yet raises; it does
-    not fall back to one device silently."""
-    if options.ndevices > 1:
-        raise NotImplementedError(
-            "not ported yet: Options(ndevices > 1) (multi-device forest)")
-
-
 def _resolve_device(options: Options) -> torch.device:
     dev = torch.device(options.torch_device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -88,9 +89,25 @@ def _resolve_device(options: Options) -> torch.device:
     return canonical_device(dev)
 
 
+def _forest_run(options: Options) -> bool:
+    return options.mode == "batched" and options.ndevices > 1
+
+
+def _resolve_devices(options: Options) -> list:
+    """The devices of a batched factor: [the one device], or those of the
+    forest path (see the module docstring)."""
+    if not _forest_run(options):
+        return [_resolve_device(options)]
+    from .parallel import device_list
+
+    return device_list(options.torch_device, options.ndevices)
+
+
 def _coarse_key(options: Options):
-    """What the factor plan's coarse layer depends on (None when off)."""
-    if not options.coarse_subtrees:
+    """What the factor plan's coarse layer depends on (None when off).  The
+    forest path partitions the flat task stream, so its plans are built
+    without the coarse layer, as the reference's are."""
+    if not options.coarse_subtrees or options.ndevices > 1:
         return None
     return (options.coarse_span, options.coarse_waste)
 
@@ -193,18 +210,25 @@ def _factor_executor(fplan: FactorPlan, options: Options, dtype, dev):
 
 
 def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
-           options: Options | None = None) -> NumericFactor:
+           options: Options | None = None, devices=None) -> NumericFactor:
     """Numeric factorization.  ``a`` defaults to the matrix captured at
     analyse time; passing a new matrix with the same pattern refactorizes
-    (the akeep-reuse workflow of the reference)."""
+    (the akeep-reuse workflow of the reference).  ``devices``, for the
+    forest path only, replaces the device rule by an explicit list of
+    ``options.ndevices`` torch devices (a device may repeat: its shards then
+    run one after the other there)."""
     options = options or symb.options
-    _check_ported(options)
+    if devices is not None and (not _forest_run(options)
+                                or len(devices) != options.ndevices):
+        raise ValueError(f"devices takes a list of ndevices="
+                         f"{options.ndevices} devices, and only on the "
+                         "forest path (mode 'batched', ndevices > 1)")
     with _diag(options, "factor", flops=float(symb.inform.num_flops)):
-        return _factor_impl(symb, a, options)
+        return _factor_impl(symb, a, options, devices)
 
 
 def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
-                 options: Options) -> NumericFactor:
+                 options: Options, devices=None) -> NumericFactor:
     values = (symb.a_perm.values if a is None
               else _permuted_values(symb, a))
     plan, fplan, splan = _plans(symb, options)
@@ -214,6 +238,9 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
     inform.num_levels = fplan.nlevels
     inform.num_tasks = fplan.num_tasks
 
+    if _forest_run(options):
+        return _factor_forest(symb, values, options, plan, fplan, splan,
+                              inform, devices or _resolve_devices(options))
     if options.mode == "stf":
         from .numeric.assemble import assemble_np
         from .numeric.stf import factorize_np
@@ -262,6 +289,41 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
                          _solve_execs=solve_execs)
 
 
+def _forest_executor(symb: SymbolicFactor, options: Options, plan, fplan,
+                     splan, devices):
+    """The cached ForestExecutor of (symb, options) on ``devices``; the
+    forest plan is cached beside it, keyed by the device count only."""
+    from .parallel.forest import ForestExecutor, build_multidevice_factor
+
+    family = "mega" if options.schedule == "mega" else "level"
+    key = ("forest", family, options.nb, options.ndevices, options.dtype,
+           options.precision, tuple(str(d) for d in devices))
+    fx = symb._cache.get(key)
+    if fx is None:
+        mkey = ("mdf", options.nb, options.ndevices)
+        md = symb._cache.get(mkey)
+        if md is None:
+            md = symb._cache[mkey] = build_multidevice_factor(
+                symb, plan, fplan, options.ndevices, splan=splan)
+        smp = _solve_mega_plan(symb, plan) if family == "mega" else None
+        fx = symb._cache[key] = ForestExecutor(
+            md, devices, dtype=_torch_dtype(options),
+            matmul_precision=options.precision, schedule=options.schedule,
+            smp=smp)
+    return fx
+
+
+def _factor_forest(symb: SymbolicFactor, values, options: Options, plan,
+                   fplan, splan, inform, devices) -> NumericFactor:
+    fx = _forest_executor(symb, options, plan, fplan, splan, devices)
+    pools, notpos = fx.factor(values)
+    if bool(notpos):
+        raise NotPositiveDefiniteError()
+    return NumericFactor(symb=symb, plan=plan, fplan=fplan, splan=splan,
+                         pool=pools, values_perm=np.asarray(values),
+                         options=options, inform=inform, mdf=fx)
+
+
 def _permuted_values(symb: SymbolicFactor, a: CscMatrix) -> np.ndarray:
     """Re-permute values of a new matrix with the analysed pattern."""
     ap = a.permute(symb.perm)
@@ -280,8 +342,8 @@ def solve(num: NumericFactor, b: np.ndarray, job: int = 0,
     (default from options), runs f64 iterative refinement — restoring
     double-precision backward error from the f32 factor.  In batched mode
     with ``refine_device`` (the default) the whole refined solve runs on the
-    device the pool lies on; otherwise, and in stf mode, the residuals are
-    computed on the host.
+    device the pool lies on; otherwise, in stf mode and on the forest path
+    (``ndevices`` > 1), the residuals are computed on the host.
     """
     with _diag(num.options, f"solve(job={job})"):
         return _solve_impl(num, b, job, refine)
@@ -299,7 +361,7 @@ def _solve_impl(num: NumericFactor, b, job: int,
         refine = 0
 
     if job == 0 and refine > 0 and num.options.mode == "batched" \
-            and num.options.refine_device:
+            and num.options.refine_device and num.mdf is None:
         x = _solve_refined_device(num, bb, refine)
         return x[:, 0] if one_d else x
 
@@ -374,14 +436,13 @@ def _solve_executor(num: NumericFactor, nrhs: int):
 
 
 def _user_matvec(num: NumericFactor, x: np.ndarray) -> np.ndarray:
-    """A·x in user ordering with the factored values (float64)."""
+    """A·x in user ordering with the factored values (float64), as a
+    scipy sparse product."""
     symb = num.symb
     ap = CscMatrix(symb.n, symb.a_perm.colptr, symb.a_perm.rowind,
                    num.values_perm)
-    xp = x[symb.perm]
-    yp = ap.matvec(xp)
-    y = np.empty_like(yp)
-    y[symb.perm] = yp
+    y = np.empty(np.shape(x))
+    y[symb.perm] = ap.to_scipy() @ x[symb.perm]
     return y
 
 
@@ -389,7 +450,10 @@ def _solve_once(num: NumericFactor, bb: np.ndarray, job: int) -> np.ndarray:
     if job not in (0, 1, 2):
         raise ValueError(f"job must be 0, 1 or 2, got {job}")
     xp = _padded_perm(num, bb)
-    if num.options.mode == "stf":
+    if num.mdf is not None:
+        xp = num.mdf.solve(num.pool, xp, job).cpu().numpy().astype(
+            np.float64)
+    elif num.options.mode == "stf":
         from .numeric.solve import solve_bwd_np, solve_fwd_np
 
         if job in (0, 1):

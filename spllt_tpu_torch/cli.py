@@ -11,10 +11,13 @@ analyse/factor/solve, report residuals, timings and stats.
 
 The flags, defaults, output lines, ``--json`` keys and exit codes of
 ``python -m spllt_tpu`` (``spllt_tpu/cli.py``), plus ``--device``: where the
-batched numeric work runs (the card unless ``cpu`` is asked for).  Exit
-code 0 when the backward error is below 1e-4, 1 otherwise, and 2 when the
-run cannot be made as asked: ``--ndev`` above 1 (not ported yet) or a CUDA
-device that is not there — never a run somewhere else instead.
+batched numeric work runs (the card unless ``cpu`` is asked for).
+``--ndev k`` (k > 1) runs the forest path on k cards from ``--device`` on
+(``cuda:N … cuda:N+k-1``), or on k shards on the CPU with ``--device cpu``;
+``--mode stf`` ignores it.  Exit code 0 when the backward error is below
+1e-4, 1 otherwise, and 2 when the run cannot be made as asked: a CUDA
+device, or k of them, that is not there — never a run somewhere else
+instead.
 """
 
 from __future__ import annotations
@@ -118,13 +121,12 @@ def main(argv=None) -> int:
         coarse_subtrees=args.coarse, solve_group=args.solve_group,
         device=args.device,
     )
-    from .api import _check_ported, _resolve_device
+    from .api import _resolve_devices
 
     try:
-        _check_ported(options)
         if options.mode == "batched":
-            _resolve_device(options)
-    except (NotImplementedError, RuntimeError) as e:
+            _resolve_devices(options)
+    except (RuntimeError, ValueError) as e:
         print(f"spllt_tpu_torch: {e}", file=sys.stderr)
         return 2
 

@@ -10,6 +10,10 @@ together — and loaded with ``ctypes``.  Library names carry a hash of the
 source, the headers and the flags, so an edited source or header is rebuilt
 and a built one is reused.  Nothing is built when the package is imported: a machine without
 ``nvcc`` imports every module and runs the plain versions on CPU tensors.
+
+:func:`build_capi` builds the C interface's library the same way, with the
+host C++ compiler: ``native/capi.cpp`` against ``include/spllt_tpu.h`` and
+the embedding flags of ``python3-config``.
 """
 
 from __future__ import annotations
@@ -19,14 +23,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 __all__ = ["KERNEL_SOURCES", "build_all", "load", "check_launch",
-           "require_cuda_tensors"]
+           "require_cuda_tensors", "build_capi", "build_c_program",
+           "embedded_env", "CAPI_INCLUDE"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _OUT = os.path.join(_PKG, "_build")
+_CAPI_SOURCE = os.path.join(_PKG, "native", "capi.cpp")
+# the C header of the interface (include/spllt_tpu.h beside the package)
+CAPI_INCLUDE = os.path.join(os.path.dirname(_PKG), "include")
 
 KERNEL_SOURCES = {
     "potrf": "potrf.cu",
@@ -137,3 +146,75 @@ def require_cuda_tensors(what: str, *tensors) -> None:
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _python_config() -> str:
+    """The ``python3-config`` of the running interpreter's version."""
+    ver = f"{sys.version_info.major}.{sys.version_info.minor}"
+    for c in (sys.executable + "-config", shutil.which(f"python{ver}-config"),
+              shutil.which("python3-config")):
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("python3-config not found: the C interface's "
+                       "library cannot be built on this machine")
+
+
+def build_capi() -> str:
+    """Compile ``native/capi.cpp`` into the C interface's shared library
+    under ``_build/`` unless an up-to-date one is there (keyed by a hash of
+    the source, the header and the flags), and return its path.  The
+    embedded interpreter needs ``PYTHONPATH`` to name the package's parent
+    directory and the directories of torch and numpy.  A failed compile
+    raises with the compiler's output."""
+    cfg = _python_config()
+
+    def config(*args):
+        return subprocess.run([cfg, *args], capture_output=True, text=True,
+                              check=True).stdout.split()
+
+    ldflags = config("--ldflags", "--embed")
+    # find libpython at run time where the link found it
+    rpath = [f"-Wl,-rpath,{f[2:]}" for f in ldflags if f.startswith("-L")]
+    flags = (["-O2", "-shared", "-fPIC", "-std=c++17", "-I", CAPI_INCLUDE]
+             + config("--includes"))
+    libs = ldflags + rpath
+    h = hashlib.sha256(" ".join(flags + libs).encode())
+    for path in (_CAPI_SOURCE, os.path.join(CAPI_INCLUDE, "spllt_tpu.h")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    lib = os.path.join(_OUT, f"libspllt_tpu_torch_c_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(_OUT, exist_ok=True)
+    tmp = lib + f".tmp{os.getpid()}"
+    p = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-o", tmp,
+                        _CAPI_SOURCE, *libs], capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"g++ failed on native/capi.cpp (exit "
+                           f"{p.returncode}):\n{p.stdout}{p.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_c_program(source: str, out: str) -> str:
+    """Compile and link the C program ``source`` (e.g.
+    ``examples/c/simple.c``) against the C interface's library (built by
+    :func:`build_capi` if needed) into ``out``; returns ``out``."""
+    lib = build_capi()
+    p = subprocess.run([os.environ.get("CC", "gcc"), "-O2", "-I", CAPI_INCLUDE,
+                        "-o", out, source, lib,
+                        f"-Wl,-rpath,{os.path.dirname(lib)}", "-lm"],
+                       capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"gcc failed on {source} (exit {p.returncode}):"
+                           f"\n{p.stdout}{p.stderr}")
+    return out
+
+
+def embedded_env(**extra) -> dict:
+    """The environment of a C program that embeds this interpreter: the
+    running process's, with ``PYTHONPATH`` naming the package's parent and
+    every directory of ``sys.path`` (where torch and numpy lie), plus
+    ``extra``."""
+    path = [os.path.dirname(_PKG)] + [p for p in sys.path if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path), **extra)

@@ -11,9 +11,8 @@ Every field of ``spllt_tpu.options.Options`` is here, with the same name,
 default and validation, so one set of keyword arguments configures either
 package; ``device`` is new.  The knobs that steer only the JAX package's
 TPU kernels (``pallas_updates``, ``pallas_hmax``, ``solve_group``) are
-accepted and have no effect on this card.  ``ndevices`` > 1, the part not
-ported yet, is accepted here and raises ``NotImplementedError`` in
-``factor``.
+accepted and have no effect on this card.  ``ndevices`` > 1 runs the
+forest path (``parallel/forest.py``) in mode 'batched'.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ class Options:
     refine: int = 2          # iterative-refinement steps in solve (f64 resid)
     refine_device: bool = True  # refine on the pool's device (float64 ELL
     #   SpMV residuals); False computes the residuals on the host
-    ndevices: int = 1        # target device count (> 1 not ported yet)
+    ndevices: int = 1        # devices of the forest path (mode 'batched')
     solve_group: int | None = None  # the TPU solve kernel's micro-tasks per
     #   grid step; no effect here (the solve stream kernel has no grid steps)
     # diagnostics -----------------------------------------------------------

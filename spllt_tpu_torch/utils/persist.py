@@ -81,11 +81,16 @@ def load_symbolic(path: str, device: str | None = None):
 
 
 def save_factor(path: str, num) -> None:
-    """Checkpoint the numeric factor (symbolic + factored pool)."""
+    """Checkpoint the numeric factor (symbolic + factored pool; of the
+    forest path, its global pool)."""
     import torch
 
     pool = num.pool
-    if isinstance(pool, torch.Tensor):
+    if num.mdf is not None:
+        from ..convert import numeric_to_numpy
+
+        pool = numeric_to_numpy(num)[0]
+    elif isinstance(pool, torch.Tensor):
         pool = pool.cpu().numpy()
     save_symbolic(path + ".symb.npz", num.symb)
     np.savez_compressed(path, pool=pool, values_perm=num.values_perm)
@@ -95,16 +100,23 @@ def load_factor(path: str, device: str | None = None):
     """Rebuild a solvable NumericFactor from a checkpoint.  In batched mode
     the pool goes to ``device`` in the dtype it was saved in, and the factor
     shares the symbolic object's solve-executor cache, as one made by
-    ``factor`` does; an ``stf`` pool stays a NumPy array."""
+    ``factor`` does; an ``stf`` pool stays a NumPy array.  With
+    ``ndevices`` > 1 the pool is spread over the devices of the forest
+    path."""
     import dataclasses
 
     import torch
 
-    from ..api import NumericFactor, _exec_key, _plans, _resolve_device
+    from ..api import (NumericFactor, _exec_key, _forest_run, _plans,
+                       _resolve_device)
 
     symb = load_symbolic(path + ".symb.npz", device=device)
     options = symb.options
     z = np.load(path)
+    if _forest_run(options):
+        from ..convert import numeric_from_numpy
+
+        return numeric_from_numpy(symb, z["pool"], z["values_perm"], options)
     plan, fplan, splan = _plans(symb, options)
     inform = dataclasses.replace(symb.inform)
     inform.num_blocks = plan.nblocks

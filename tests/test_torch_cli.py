@@ -111,11 +111,33 @@ def test_stats_and_dot_text_equal_reference():
     assert dot_t(symb_t, max_nodes=5) == dot_j(symb_j, max_nodes=5)
 
 
-def test_ndev_above_one_exits_with_not_ported(capsys):
-    rc = main_t(["--poisson2d", "6", "--nb", "8", "--device", "cpu",
-                 "--ndev", "2"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "not ported yet" in err and "ndevices" in err
+@pytest.mark.parametrize("schedule", ["mega", "scan"])
+def test_ndev_two_runs_the_forest_on_cpu_shards(capsys, schedule):
+    """--ndev 2 --device cpu exits 0 with the reference CLI's output lines
+    and --json keys; the structural numbers equal the reference's for the
+    same arguments (which it runs in stf mode here: its batched forest
+    compiles for minutes on the CPU)."""
+    argv = ["--poisson2d", "10", "--nb", "8", "--nrhs", "2", "--ndev", "2",
+            "--json", "--schedule", schedule]
+    rc_j, out_j, rec_j = run(main_j, argv + ["--mode", "stf"], capsys)
+    rc_t, out, rec_t = run(main_t, argv + ["--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert tuple(rec_t) == tuple(rec_j) == KEYS
+    for k in ("matrix", "n", "nnz", "nnz_L", "flops"):
+        assert rec_t[k] == rec_j[k], k
+    assert rec_t["bwd_err"] < 1e-12
+    for tag in ("[analyse]", "[factor ]", "[solve  ]"):
+        assert out.count(tag) == out_j.count(tag) == 1
+
+
+def test_stf_ignores_ndev(capsys):
+    """--mode stf --ndev 2 runs the NumPy oracle, as the reference does."""
+    argv = ["--poisson2d", "6", "--nb", "8", "--mode", "stf", "--ndev", "2",
+            "--json"]
+    rc_j, _, rec_j = run(main_j, argv, capsys)
+    rc_t, _, rec_t = run(main_t, argv, capsys)
+    assert rc_j == rc_t == 0
+    assert rec_t["nnz_L"] == rec_j["nnz_L"] and rec_t["bwd_err"] < 1e-12
 
 
 def test_cuda_without_a_card_exits_non_zero(capsys):

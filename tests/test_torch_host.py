@@ -1,5 +1,5 @@
 """spllt_tpu_torch host side: import hygiene, host-code copies held equal
-to the spllt_tpu originals, Options(device=...) and not-ported options."""
+to the spllt_tpu originals, Options(device=...) and Options(ndevices=...)."""
 
 import dataclasses
 import os
@@ -47,8 +47,9 @@ def assert_same(x, y, path="") -> None:
 
 
 def test_import_and_cpu_run_without_jax():
-    """A fresh interpreter imports the port, factors and solves on the CPU,
-    and loads neither jax nor spllt_tpu while doing so."""
+    """A fresh interpreter imports the port, factors and solves on the CPU
+    (on one device and on two shards), imports the C interface's and the
+    conversion's modules, and loads neither jax nor spllt_tpu."""
     code = (
         "import sys, numpy as np\n"
         "before = set(sys.modules)\n"
@@ -63,6 +64,12 @@ def test_import_and_cpu_run_without_jax():
         "< 1e-12\n"
         "assert 'spllt_tpu_torch.numeric.solve_mega' in sys.modules\n"
         "assert 'spllt_tpu_torch.numeric.megakernel' in sys.modules\n"
+        "f = st.factor(s, options=st.Options(nb=8, device='cpu', "
+        "ndevices=2))\n"
+        "assert np.abs(a.matvec(st.solve(f, np.ones(a.n))) - 1).max() "
+        "< 1e-12\n"
+        "import spllt_tpu_torch.capi, spllt_tpu_torch.convert\n"
+        "import spllt_tpu_torch.parallel.rhs\n"
         "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
         "m.startswith('jax.') or m == 'spllt_tpu' or "
         "m.startswith('spllt_tpu.')]\n"
@@ -182,19 +189,33 @@ def test_default_device_never_falls_back_to_cpu():
     assert isinstance(num.pool, np.ndarray)
 
 
-@pytest.mark.parametrize("kw", [dict(schedule="mega", ndevices=2),
-                                dict(ndevices=2)],
-                         ids=["mega", "ndevices"])
-def test_not_ported_options_raise(kw):
-    """schedule='mega' itself is ported; across devices it is not, like
-    the level path.  (The coarse, trace and timers options are ported:
-    tests/test_torch_coarse.py and tests/test_torch_cli.py run them.)"""
+@pytest.mark.parametrize("schedule", ["mega", "scan"])
+def test_multidevice_options_factor(schedule):
+    """Options(ndevices=2) on device='cpu' runs the forest path on two CPU
+    shards with the executors its schedule names, and solves."""
+    kind = "Mega" if schedule == "mega" else "Scan"
+    opts = st.Options(nb=8, device="cpu", ndevices=2, schedule=schedule)
+    a = st.poisson2d(6)
+    num = st.factor(st.analyse(a, opts))
+    assert [p.device.type for p in num.pool] == ["cpu", "cpu"]
+    b = np.ones(a.n)
+    x = st.solve(num, b)
+    assert np.linalg.norm(a.matvec(x) - b) / np.linalg.norm(b) < 1e-12
+    assert num.mdf.executors() == {
+        "factor": [f"{kind}FactorExecutor"] * 2,
+        "factor_top": f"{kind}FactorExecutor",
+        "solve": [f"{kind}SolveExecutor"] * 2,
+        "solve_top": f"{kind}SolveExecutor"}
+
+
+def test_multidevice_cuda_without_cards_raises():
+    """Options(ndevices=2) on 'cuda' where fewer cards are visible raises
+    ValueError; it never runs on the CPU instead."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are present")
     symb = st.analyse(st.poisson2d(6), st.Options(nb=8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        st.factor(symb, options=st.Options(nb=8, device="cpu", **kw))
-    num = st.factor(symb, options=st.Options(nb=8, device="cpu",
-                                             schedule="mega"))
-    assert isinstance(num.pool, torch.Tensor)
+    with pytest.raises(ValueError, match="CUDA devices are visible"):
+        st.factor(symb, options=st.Options(nb=8, ndevices=2))
 
 
 def test_options_take_every_reference_field():
