@@ -19,6 +19,10 @@
     python3 chip_smoke.py --entry-only    # only step 6: the entry points
     python3 chip_smoke.py --forest-only   # only step 7: Options(ndevices=k),
                                           # the rhs-sharded solve, the C API
+    python3 chip_smoke.py --keep-call DIR # the keep rule of the shared
+                                          # update body: parent (a tree
+                                          # unpacked at DIR), change,
+                                          # change, parent, one line
 
 Needs one CUDA device, ``nvcc`` and no network.  It
 
@@ -48,7 +52,9 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      tiles whose kv sits at the edges of its 32-column panels, nb 48, 128
      and 256, float32 and float64; the factor stream's POTRF and TRSM runs
      at kv 0, 1, 31, 32, 33, 127 and nb, nb 8, 48, 128 and 256, narrow and
-     wide, and a failed pivot); and times them there (CUDA events, after a
+     wide, and a failed pivot; its UPD launches on two hand-made runs with
+     identity-map tasks, chains, one-task segments and a run flagged
+     dense, nb 48, 128 and 256, float32 and float64); and times them there (CUDA events, after a
      warm-up, as the host issues the launches; the level kernels also on
      the device alone, their launches queued back to back: ``device_ms``),
      the stream kernels also run by run (``stream_run_times``,
@@ -217,18 +223,19 @@ def live_blocks(mask: torch.Tensor, g: int) -> torch.Tensor:
 
 def exec_granularity(stream: bool):
     """How the update body of K3 (``stream=False``) or of K4's UPD runs
-    rounds its arithmetic: (compact, rows, columns, contraction).  K3's
-    body counts the live rows and columns themselves (compact), K4's body
-    the aligned blocks of the tile that hold a live one.  An older tree,
-    whose two kernels shared one body, states one granularity for both in
-    ``hopper_update``."""
+    rounds its arithmetic: (compact, rows, columns, contraction).  Both run
+    K3's compact body, which counts the live rows and columns themselves
+    (compact).  An older tree states K4's own body's granularity (the
+    aligned blocks of the tile that hold a live one) as
+    ``megakernel.UPD_EXEC_*``, and one older still one granularity for both
+    kernels in ``hopper_update``."""
     from spllt_tpu_torch.numeric import hopper_update as hu
     from spllt_tpu_torch.numeric import megakernel as mk
 
     if stream and hasattr(mk, "UPD_EXEC_ROWS"):
         return False, mk.UPD_EXEC_ROWS, mk.UPD_EXEC_COLS, mk.UPD_EXEC_SLAB
-    return (getattr(hu, "EXEC_COMPACT", False) and not stream,
-            hu.EXEC_ROWS, hu.EXEC_COLS, hu.EXEC_SLAB)
+    return (getattr(hu, "EXEC_COMPACT", False), hu.EXEC_ROWS, hu.EXEC_COLS,
+            hu.EXEC_SLAB)
 
 
 def update_level_work(tasks: dict, nb: int, stream: bool = False) -> dict:
@@ -261,8 +268,28 @@ def update_level_work(tasks: dict, nb: int, stream: bool = False) -> dict:
             "dense_trimmed_k_slabs": int((2 * nb * nb * up(kn, es)).sum())}
 
 
+def with_plain_maps(stream: dict) -> dict:
+    """A factor stream on the card with the plain version's maps
+    ``relr``/``relc`` on the card too (the kernel reads packed entries, and
+    the executor keeps the maps on the host), so that the plain version and
+    the work counts do not copy them at every call.  A stream of an older
+    tree has them there already."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    if "relr" in stream:
+        return stream
+    return dict(stream, **mk.plain_maps(stream, stream["dst"].device))
+
+
+def upd_task_count(stream: dict) -> int:
+    """UPD tasks of a factor stream (on the device or the host)."""
+    return int((stream["relr"] if "relr" in stream
+                else stream["host"]["relr"]).shape[0])
+
+
 def upd_run_tasks(stream: dict, r: int) -> dict:
-    """The tables of UPD run ``r`` of a factor stream, under the names
+    """The tables of UPD run ``r`` of a factor stream (with the plain maps
+    on the device: :func:`with_plain_maps`), under the names
     :func:`update_level_work` reads."""
     h = stream["host"]
     t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
@@ -286,7 +313,8 @@ def update_work(fex, nb: int) -> dict:
         tabs = [lv["upd"] for lv in fex.levels if "upd" in lv]
     else:
         kinds = fex.stream["host"]["run_kind"]
-        tabs = [upd_run_tasks(fex.stream, r) for r in range(len(kinds))
+        st = with_plain_maps(fex.stream)
+        tabs = [upd_run_tasks(st, r) for r in range(len(kinds))
                 if kinds[r] == 0]
     levels = [update_level_work(t, nb, stream) for t in tabs]
     return {k: sum(w[k] for w in levels) / 1e9 for k in keys}
@@ -389,7 +417,7 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
         factor_flops=int(symb.inform.num_flops),
         nblocks=int(num.plan.nblocks), nlevels=int(num.fplan.nlevels),
         update_micro_tasks=int(fex.num_micro_tasks if schedule == "scan" else
-                         fex.stream["relr"].shape[0]),
+                               upd_task_count(fex.stream)),
         update_gflop=update_work(fex, 128),
         pool_bytes=int(num.pool.numel() * 4), bwd_err=err,
         launches=launches, native_available=bool(native_available()),
@@ -399,6 +427,8 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
         factor_gflops=symb.inform.num_flops / factor_ms / 1e6,
         solve_fwd_bwd_ms=solve_ms, refined_solve_wall_ms=solve_wall_ms,
         card=card)
+    if schedule == "mega":
+        rec["stream_table_bytes"] = table_bytes(fex.stream)
 
     if full_checks:
         # refactorize new values on the same pattern: nothing is rebuilt
@@ -914,6 +944,7 @@ def factor_stream_work(stream: dict, nb: int, esz: int):
     and writes a tile.  Work items as the kernel forms them: UPD destination
     segments, POTRF tiles, TRSM bands of 64 / split dst rows of a pair
     (``run_split``; a stream without that table is unsplit)."""
+    stream = with_plain_maps(stream)
     h = stream["host"]
     aux = stream["aux"].cpu().numpy().astype(np.int64)
     split = h.get("run_split", np.ones(len(h["run_kind"]), np.int64))
@@ -1085,7 +1116,8 @@ def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
     its plain version and against the level executor's factor ``scan_pool``
     unless that is None (each within ``tol`` of max|ref|: other summation
     order, sqrt/division), and bit for bit against the factor the main path
-    computed.  Returns (assembled pool, the kernel's factor, errors)."""
+    computed and against a second launch on the same pool.  Returns
+    (assembled pool, the kernel's factor, errors)."""
     from spllt_tpu_torch.numeric import megakernel
     from spllt_tpu_torch.numeric.assemble import assemble_torch
 
@@ -1099,16 +1131,20 @@ def mega_factor_check(num, fex, scan_pool, tol: float = 1e-5):
             f"mega_factor ran {megakernel.mega_factorize.last_grid} blocks, "
             f"not two on each of the {sms} SMs")
     ref = pool0.clone()
-    megakernel.mega_factorize_plain(ref.view(-1, nb), fex.stream)
+    megakernel.mega_factorize_plain(ref.view(-1, nb),
+                                    with_plain_maps(fex.stream))
     torch.cuda.synchronize()
     mabs, rel = rel_err(got, ref)
     require(rel <= tol, f"mega_factor: kernel differs from the plain "
                         f"version: rel {rel} > {tol}")
-    del ref
-    require(rel_err(got, num.pool)[0] == 0.0,
+    ref.copy_(pool0)
+    megakernel.mega_factorize(ref.view(-1, nb), fex.stream)
+    torch.cuda.synchronize()
+    require(torch.equal(got, ref) and torch.equal(got, num.pool),
             "mega_factor is not deterministic: the same stream on the same "
             "pool gave another factor")
-    checks = dict(max_abs=mabs, rel=rel)
+    del ref
+    checks = dict(max_abs=mabs, rel=rel, bit_for_bit_three_factors=True)
     if scan_pool is not None:
         vs_scan = rel_err(got, scan_pool)
         require(vs_scan[1] <= tol, f"mega_factor: differs from the level "
@@ -1143,10 +1179,12 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     acc.dms = time_device_prepared_ms(
         lambda: buf.copy_(pool0),
         lambda: megakernel.mega_factorize(buf.view(-1, nb), fex.stream), 3)
+    plain_stream = with_plain_maps(fex.stream)
     acc.pms = time_prepared_ms(
         lambda: buf.copy_(pool0),
         lambda: megakernel.mega_factorize_plain(buf.view(-1, nb),
-                                                fex.stream), 1)
+                                                plain_stream), 1)
+    del plain_stream
     work = factor_stream_work(fex.stream, nb, esz)
     add_bound(acc, work)
     rows.append(kernel_row(
@@ -1158,7 +1196,8 @@ def mega_kernel_phase(num, fex, sex, scan_pool, nrhs, launches,
     detail["mega_factor"] = dict(
         vs_level_executor_rel=checks["vs_level_executor_rel"],
         vs_level_executor_max_abs=checks["vs_level_executor_max_abs"],
-        update_tasks=int(fex.stream["relr"].shape[0]))
+        update_tasks=upd_task_count(fex.stream),
+        stream_table_bytes=table_bytes(fex.stream))
     if run_times:
         detail["mega_factor"]["run_times"] = factor_run_times(fex, pool0,
                                                               work)
@@ -1395,6 +1434,33 @@ def factor_edge_streams(out, rng, wide: int = 300) -> None:
             del pool0, bad, got
 
 
+def upd_edge_streams(out) -> None:
+    """The stream's UPD launches on the hand-made runs of
+    ``megakernel.upd_edge_runs`` (identity-map tasks, chains, one-task
+    segments, a run flagged ``dense`` right after another UPD run), nb 48,
+    128 and 256, float32 and float64, through :func:`edge_check` against
+    the plain version (of the size of the update)."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    rng = np.random.default_rng(SEED + 11)
+    for nb in (48, 128, 256):
+        runs, rows_ = mk.upd_edge_runs(nb, SEED + nb)
+        stream = mk.assemble_stream(runs, nb, rows_)
+        require(list(stream["run_dense"]) == [0, 1],
+                f"upd edge runs nb {nb}: dense flags {stream['run_dense']}")
+        stream = with_plain_maps(mk.stream_to_device(stream, "cuda"))
+        for dtype in (torch.float32, torch.float64):
+            pool0 = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                                    dtype=dtype, device="cuda")
+            edge_check(out, f"factor_upd_runs_nb{nb}_{str(dtype)[-7:]}",
+                       lambda mb: mk.mega_factorize(pool0.clone(), stream,
+                                                    max_blocks=mb),
+                       lambda: mk.mega_factorize_plain(pool0.clone(),
+                                                       stream),
+                       dtype, pool0)
+            del pool0
+
+
 def edge_stream_phase():
     """The stream kernels on small and on hand-made streams with 1, 3 and
     all blocks: more items than blocks, fewer items than blocks, a
@@ -1553,6 +1619,7 @@ def edge_stream_phase():
                       dtype)
 
     factor_edge_streams(out, rng)
+    upd_edge_streams(out)
 
     # ---- update tasks that stress the masks and skip rules: K4 and K3 ---- #
     for nb in (48, 128, 256):
@@ -1688,7 +1755,8 @@ def segment_tasks(t: dict, s: int, nb: int, pool_rows: int) -> dict:
 
 
 def table_bytes(t: dict) -> int:
-    """Device bytes of one level's update tables."""
+    """Device bytes of the tensors of ``t``: one level's update tables, or
+    a factor stream's."""
     return sum(v.numel() * v.element_size() for v in t.values()
                if isinstance(v, torch.Tensor))
 
@@ -2003,6 +2071,7 @@ def factor_only(card: str, large: bool, t_start: float) -> int:
         torch.cuda.empty_cache()
     edges = {}
     factor_edge_streams(edges, np.random.default_rng(SEED + 3))
+    upd_edge_streams(edges)
     emit("factor_edge_streams", card=card, streams=len(edges), worst_rel={
         d: max(v["rel"] for k, v in edges.items() if d in k)
         for d in ("float32", "float64")})
@@ -2010,7 +2079,98 @@ def factor_only(card: str, large: bool, t_start: float) -> int:
     return finish(t_start)
 
 
-# --------------------------------------------------------------------- #
+def keep_metrics(card: str) -> dict:
+    """What a keep call of the update body compares, for the tree this
+    script runs in, at poisson3d(32) and (64) on the main path's options:
+    K4's device time (fresh pool copy before each launch, less the copy),
+    its per-run times by kind (:func:`factor_run_times`: UPD, POTRF and
+    TRSM, each also over its narrow and its wide runs), the stream's table
+    bytes and ``factor_ms``; and K3's device time summed over the level
+    path's levels (each level's launches back to back on a random pool, as
+    :func:`scan_level_times` times them)."""
+    from spllt_tpu_torch.numeric import hopper_update, megakernel
+
+    out = {}
+    for m in (32, 64):
+        rec, num, fex, sex = main_path(m, card, False, "mega")
+        pool0, buf, checks = mega_factor_check(num, fex, None)
+        dms = time_device_prepared_ms(
+            lambda: buf.copy_(pool0),
+            lambda: megakernel.mega_factorize(buf.view(-1, fex.nb),
+                                              fex.stream), 3)
+        rt = factor_run_times(fex, pool0,
+                              factor_stream_work(fex.stream, fex.nb, 4))
+        kinds = {k: {f: v[f] for f in ("runs", "ms", "narrow_ms", "wide_ms")}
+                 for k, v in rt["by_kind"].items()}
+        row = dict(k4_device_ms=dms, k4_whole_ms=rt["whole_ms"],
+                   by_kind=kinds, factor_ms_mega=rec["factor_ms"],
+                   stream_table_bytes=table_bytes(fex.stream),
+                   k4_rel_err=checks["rel"])
+        del num, fex, sex, pool0, buf
+        torch.cuda.empty_cache()
+        rec, num, fex, sex = main_path(m, card, False, "scan")
+        rng = np.random.default_rng(SEED + 8)
+        work = torch.as_tensor(
+            rng.standard_normal((fex.pool_rows, fex.nb), dtype=np.float32),
+            device="cuda")
+        row["k3_device_ms"] = sum(
+            time_device_ms(lambda: hopper_update.apply_updates(work, lv["upd"]),
+                           5) for lv in fex.levels if "upd" in lv)
+        row["factor_ms_scan"] = rec["factor_ms"]
+        out[f"p3d{m}"] = row
+        del num, fex, sex, work
+        torch.cuda.empty_cache()
+    return out
+
+
+# the keep rule of a shared body: the candidate no slower than the parent
+# by more than the spread of device times between runs of one tree (1 %),
+# and no UPD run kind slower by more than 5 %
+KEEP_NOISE, KEEP_UPD_KIND = 1.01, 1.05
+
+
+def keep_call(parent: str, card: str) -> dict:
+    """Parent, change, change, parent: :func:`keep_metrics` of the tree
+    unpacked at ``parent`` (which gets a copy of this script) and of this
+    tree, each in a process of its own, and the verdict: K4's device time
+    and K3's no slower at either size, no UPD run kind (all, narrow, wide
+    runs) slower by more than 5 %, on the means of each tree's two runs."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copy(os.path.abspath(__file__), os.path.join(parent,
+                                                        "chip_smoke.py"))
+    runs = []
+    for tag, tree in (("parent", parent), ("change", here),
+                      ("change", here), ("parent", parent)):
+        p = subprocess.run([sys.executable, "chip_smoke.py",
+                            "--keep-metrics"], cwd=tree, capture_output=True,
+                           text=True, timeout=900)
+        line = next((ln for ln in p.stdout.splitlines()
+                     if ln.startswith('{"keep_metrics"')), None)
+        require(p.returncode == 0 and line is not None,
+                f"keep call: the {tag} tree failed (exit {p.returncode}):\n"
+                f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        runs.append(dict(tree=tag, **json.loads(line)["keep_metrics"]))
+    mean = lambda tag, size, get: float(np.mean(
+        [get(r[size]) for r in runs if r["tree"] == tag]))
+    ratios, keep = {}, True
+    for size in ("p3d32", "p3d64"):
+        tests = [("k4_device_ms", lambda x: x["k4_device_ms"], KEEP_NOISE),
+                 ("k3_device_ms", lambda x: x["k3_device_ms"], KEEP_NOISE)]
+        tests += [(f"upd_{f}", lambda x, f=f: x["by_kind"]["upd"][f],
+                   KEEP_UPD_KIND) for f in ("ms", "narrow_ms", "wide_ms")]
+        for name, get, limit in tests:
+            par, chg = mean("parent", size, get), mean("change", size, get)
+            ratio = chg / par if par > 0 else (0.0 if chg == 0 else
+                                               float("inf"))
+            ratios[f"{size}_{name}"] = dict(parent=par, change=chg,
+                                            ratio=ratio, limit=limit)
+            keep &= ratio <= limit
+    return dict(card=card, order=[r["tree"] for r in runs], runs=runs,
+                ratios=ratios, keep=bool(keep))
+
+
 # --------------------------------------------------------------------- #
 # the entry points: coarse dense subtrees, the CLI, checkpoints, tracing
 # --------------------------------------------------------------------- #
@@ -2739,6 +2899,14 @@ def main() -> int:
                     help="only the multi-device phase: the forest path "
                          "(Options(ndevices=k), poisson3d 64 and 32), the "
                          "rhs-sharded solve and the C interface")
+    ap.add_argument("--keep-metrics", action="store_true",
+                    help="only what a keep call compares (K4 and its UPD "
+                         "runs, K3; poisson3d 32 and 64), as one line")
+    ap.add_argument("--keep-call", metavar="PARENT",
+                    help="parent, change, change, parent: --keep-metrics "
+                         "of the tree unpacked at PARENT and of this one, "
+                         "each in its own process, and the verdict, as one "
+                         "line")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -2758,6 +2926,12 @@ def main() -> int:
     emit("device", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
     emit("build", seconds=build_all())
+    if args.keep_metrics:
+        emit("keep_metrics", **keep_metrics(card))
+        return finish(t_start)
+    if args.keep_call:
+        emit("keep_call", **keep_call(os.path.abspath(args.keep_call), card))
+        return finish(t_start)
     if args.solve_only:
         return solve_only(card, not args.no_large, not args.no_run_times,
                           t_start)

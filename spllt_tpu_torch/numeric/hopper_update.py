@@ -12,7 +12,8 @@ segment.
 
 Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/pallas_update.py``
 (``pallas_apply_updates`` / ``_kernel`` with ``onehot_gather``); the source
-is ``csrc/update.cu``.  By the count of what the live rows and columns need
+is ``csrc/update.cu``, whose body ``csrc/update_compact.cuh`` the factor
+stream's UPD runs launch too.  By the count of what the live rows and columns need
 it is bound by bytes; in practice by the arithmetic over the live rows and
 columns and, on levels of tiny tasks, by each task's latency.  Most
 micro-tasks are sparse (a few dozen live rows and columns of a 128-row

@@ -17,14 +17,23 @@ The stream is one set of flat int32 tables for the whole factorization:
                                 POTRF/TRSM: factor columns ``kv``) and, for
                                 UPD, the valid width of the source block
                                 column (the contraction stops there)
-  relr, relc [K_upd, nb]        window-relative row maps of the UPD tasks
-  run_rel [R]                   UPD run r: task t has rel row t − run_rel[r]
+  eptr [K+1], enr [K], ent      UPD tasks: the live rows and columns as
+                                packed entries (``hopper_update.
+                                pack_live_entries`` of each UPD run alone, so
+                                no ``CHAIN`` crosses a run; POTRF and TRSM
+                                tasks have none)
+  run_dense [R]                 UPD run r: one block an SM
+                                (``hopper_update.dense_level`` of the run)
   seg_ptr, run_seg [R+1]        UPD run r: seg_ptr[run_seg[r]:run_seg[r+1]]
                                 are the task offsets of its runs of equal
                                 dst (one more entry than segments)
   run_split [R]                 TRSM run r: its work items are bands of
                                 ``TRSM_ROWS // run_split[r]`` dst rows of a
                                 pair (1, 2 or 4; see :func:`trsm_split`)
+  relr, relc [K_upd, nb]        window-relative row maps of the UPD tasks,
+  run_rel [R]                   UPD run r: task t has rel row t − run_rel[r]
+                                (the plain version's; the kernel reads the
+                                packed entries)
 
 What crosses over from ``spllt_tpu.numeric.megakernel.build_mega_stream``
 is the task order and the run boundaries (its ``drain`` steps).  Its step
@@ -36,20 +45,22 @@ Kernel note.  Replaces the TPU kernel ``spllt_tpu/numeric/megakernel.py``
 (``mega_factorize`` / ``_kernel``); the source is ``csrc/mega_factor.cu``.
 Its bound is the sum of its bodies' bounds (bytes for the sparse update
 tasks and the leaf potrf tiles; dependent chains of potrf and trsm near the
-root) plus one grid barrier per run.  One call launches the stream in parts
-(:func:`run_parts`: a level's UPD run, then its POTRF and TRSM runs), one
-persistent cooperative launch a part, each part in a kernel that holds only
-its own bodies, so that the update body keeps every register a float kernel
-may have.  A launch loops over its runs; inside a run whichever block is
-free takes the next work item from a counter (UPD: one destination segment,
-summed in registers, one read-modify-write; POTRF: one tile in place; TRSM:
-a band of rows of one pair in place) and a grid barrier at every run
-boundary orders the runs.  The update body is the batched update kernel's
-(``csrc/update_body.cuh``); POTRF and TRSM have bodies of their own
-(``csrc/mega_factor_body.cuh``: blocked in 16-column panels, one warp's
-registers for each diagonal block, one thread a row below), since near the
-root most of their runs have fewer items than the card has blocks and last
-as long as one item.
+root) plus one launch or grid barrier per run.  One call launches the
+stream in parts (:func:`run_parts`: a level's UPD run, then its POTRF and
+TRSM runs), each in a kernel of its own.  A UPD run is one ordinary launch
+of the level path's compact update body (``csrc/update_compact.cuh``, K3's):
+one block per destination segment, its tasks multiplied over their live
+rows and columns only and summed in registers, the destination's live cells
+read and written once; two blocks an SM, or one where the run's ``dense``
+flag is set.  A part of POTRF and TRSM runs is one persistent cooperative
+launch: it loops over its runs, inside a run whichever block is free takes
+the next work item from a counter (POTRF: one tile in place; TRSM: a band of
+rows of one pair in place) and a grid barrier at every run boundary orders
+the runs; their bodies are K4's own (``csrc/mega_factor_body.cuh``: blocked
+in 16-column panels, one warp's registers for each diagonal block, one
+thread a row below), since near the root most of their runs have fewer
+items than the card has blocks and last as long as one item.  The launch
+boundary orders one part, and one UPD run, before the next.
 """
 
 from __future__ import annotations
@@ -63,31 +74,33 @@ from ._build import check_launch, load, require_cuda_tensors
 from .factor_scan import canonical_device
 from .hopper_potrf import potrf_plain
 from .hopper_trsm import trsm_plain
-from .hopper_update import apply_updates_plain, build_micro_tasks
+from .hopper_update import (apply_updates_plain, build_micro_tasks,
+                            dense_edge_tasks, dense_level, pack_live_entries)
 
 __all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "TRSM_ROWS", "BLOCKS",
-           "UPD_EXEC_ROWS", "UPD_EXEC_COLS", "UPD_EXEC_SLAB",
            "build_mega_stream", "trsm_split", "trsm_work_items",
-           "run_parts", "stream_to_device", "mega_factorize", "mega_factorize_plain",
-           "MegaFactorExecutor"]
+           "run_parts", "stream_to_device", "plain_maps", "upd_edge_runs",
+           "mega_factorize", "mega_factorize_plain", "MegaFactorExecutor"]
 
 KIND_UPD, KIND_POTRF, KIND_TRSM = 0, 1, 2
 # dst rows of a TRSM work item in an unsplit run, and the block count the
 # split is sized for (two blocks on each of the H100's 132 SMs); neither
 # depends on the grid a launch gets, so neither does any result
 TRSM_ROWS, BLOCKS = 64, 264
-# The UPD body's arithmetic (csrc/update_body.cuh), per task: the aligned
-# blocks of 8 rows (a warp's) and 64 columns (half a 128-wide piece) that
-# hold a live entry, over srcn rounded up to 8 contraction steps (a slab).
-UPD_EXEC_ROWS, UPD_EXEC_COLS, UPD_EXEC_SLAB = 8, 64, 8
 
 _TASK_KEYS = ("wr", "wc", "dst", "aux", "srcn")
-_DEV_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "run_split",
-             "seg_ptr", "wr", "wc", "dst", "aux", "srcn", "relr", "relc")
+# what the kernel reads on the device, in the order of its C arguments
+_DEV_KEYS = ("run_ptr", "run_kind", "run_split", "seg_ptr", "wr", "wc",
+             "dst", "aux", "srcn", "eptr", "enr", "ent")
+# the plain version's maps, on the device only where it runs (the CPU)
+_PLAIN_KEYS = ("relr", "relc")
+# per-run tables the host keeps
+_HOST_KEYS = ("run_ptr", "run_kind", "run_seg", "run_rel", "run_split",
+              "run_dense")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_mega_factor_{s}":
-        [_P] * 15 + [_I, _I, _P, _P, _I, _I, ctypes.POINTER(ctypes.c_int),
-                     _P]
+        [_P] * 14 + [_I, _I, _P, _P, _I, _P, _P, _I,
+                     ctypes.POINTER(ctypes.c_int), _P]
         for s in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -184,13 +197,18 @@ def trsm_work_items(stream: dict) -> list:
 
 def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
     """Concatenate runs ``(kind, {wr, wc, dst, aux, srcn}, relr, relc)``
-    into the flat tables, checking what the kernel relies on: windows inside
-    the pool, ``dst`` tile-aligned everywhere and sorted inside a UPD run,
-    map entries in [-1, nb), ``aux`` and ``srcn`` in [0, nb]."""
+    into the flat tables, packing each UPD run's live entries on its own,
+    and check what the kernel relies on: windows inside the pool, ``dst``
+    tile-aligned everywhere and sorted inside a UPD run, map entries in
+    [-1, nb), ``aux`` and ``srcn`` in [0, nb], nb below 2**15 (the packed
+    entries)."""
+    if nb >= 2 ** 15:
+        raise ValueError("factor stream: nb must be below 2**15")
     run_ptr, run_kind, run_seg, run_rel, run_split = [0], [], [0], [], []
-    seg_ptr, relr_all, relc_all = [], [], []
+    run_dense, seg_ptr, relr_all, relc_all = [], [], [], []
+    estart, enr_all, ent_all = [], [], []
     cols = {k: [] for k in _TASK_KEYS}
-    ntask = nrel = nsegent = 0
+    ntask = nrel = nsegent = nent = 0
     for kind, tab, relr, relc in runs:
         k = len(tab["dst"])
         for nm in _TASK_KEYS:
@@ -220,13 +238,27 @@ def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
             seg_ptr.append(seg)
             nsegent += len(seg)
             nrel += k
+            eptr, enr, ent = pack_live_entries(relr, relc, tab["aux"],
+                                               tab["dst"], nb)
+            estart.append(eptr[:-1].astype(np.int64) + nent)
+            enr_all.append(enr)
+            ent_all.append(ent)
+            nent += int(eptr[-1])
+            run_dense.append(int(dense_level(enr, eptr, len(seg) - 1, nb)))
         elif kind not in (KIND_POTRF, KIND_TRSM):
             raise ValueError(f"factor stream: unknown kind {kind}")
+        else:
+            estart.append(np.full(k, nent, np.int64))
+            enr_all.append(np.zeros(k, np.int32))
+            run_dense.append(0)
         ntask += k
         run_ptr.append(ntask)
         run_kind.append(kind)
         run_seg.append(nsegent)
         run_split.append(trsm_split(k, nb) if kind == KIND_TRSM else 1)
+
+    if nent >= 2 ** 31:
+        raise ValueError("factor stream: too many live entries for int32")
 
     def cat(parts, shape=(0,)):
         return (np.concatenate(parts) if parts
@@ -238,20 +270,80 @@ def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
                run_seg=np.asarray(run_seg, np.int32),
                run_rel=np.asarray(run_rel, np.int32),
                run_split=np.asarray(run_split, np.int32),
+               run_dense=np.asarray(run_dense, np.int32),
                seg_ptr=cat(seg_ptr), relr=cat(relr_all, (0, nb)),
-               relc=cat(relc_all, (0, nb)), nb=nb, pool_rows=pool_rows)
+               relc=cat(relc_all, (0, nb)),
+               eptr=cat(estart + [np.asarray([nent])]), enr=cat(enr_all),
+               ent=cat(ent_all), nb=nb, pool_rows=pool_rows)
     return out
 
 
-def tables_to_device(stream: dict, dev_keys, meta_keys, device) -> dict:
+def upd_edge_runs(nb: int, seed: int):
+    """Two hand-made UPD runs, one after the other, for the checks of the
+    stream's UPD launches on the card, and the pool rows they need.  Run 1
+    (destinations tiles 24–67, sources from tile 88 on): one segment of four
+    identity-map (syrk) tasks, a chain, at srcn nb, 17, 0 and 1; an
+    identity task at blkn nb // 2 alone; one segment of three sparse tasks
+    with the same live rows and columns (a chain) and a fourth with others;
+    40 one-task segments of 1–5 live rows and columns; an identity task at
+    srcn 0 alone.  Run 2: :func:`.hopper_update.dense_edge_tasks` (24
+    destinations, chains of near-dense tasks, a run flagged ``dense``),
+    whose windows read the tiles run 1 wrote."""
+    rng = np.random.default_rng(seed)
+    dense, rows2 = dense_edge_tasks(nb, seed)      # windows in tiles 24–87
+    src0, ntile = rows2 // nb, rows2 // nb + 40
+    iden = np.arange(nb)
+
+    def live(count):
+        rel = np.full(nb, -1)
+        rel[rng.permutation(nb)[:count]] = rng.integers(0, nb, count)
+        return rel
+
+    def window():
+        return int(rng.integers(src0 * nb, (ntile - 1) * nb + 1))
+
+    tasks = []          # (dst tile, wr, wc, blkn, srcn, relr, relc)
+    for kn in (nb, min(17, nb), 0, 1):
+        i, j = rng.integers(src0, ntile, 2)
+        tasks.append((24, i * nb, j * nb, nb, kn, iden, iden))
+    i, j = rng.integers(src0, ntile, 2)
+    tasks.append((25, i * nb, j * nb, nb // 2, nb, iden, iden))
+    rr, rc = live(max(1, nb // 3)), live(max(1, nb // 2))
+    for q in range(4):
+        if q == 3:
+            rr, rc = live(max(1, nb // 4)), live(nb)
+        tasks.append((26, window(), window(), nb, int(rng.integers(1, nb + 1)),
+                      np.where(rr >= 0, rng.integers(0, nb, nb), -1),
+                      np.where(rc >= 0, rng.integers(0, nb, nb), -1)))
+    for tile in range(27, 67):
+        tasks.append((tile, window(), window(), nb,
+                      int(rng.integers(1, min(8, nb) + 1)),
+                      live(int(rng.integers(1, min(5, nb) + 1))),
+                      live(int(rng.integers(1, min(5, nb) + 1)))))
+    i, j = rng.integers(src0, ntile, 2)
+    tasks.append((67, i * nb, j * nb, nb, 0, iden, iden))
+    d, wr, wc, blkn, srcn, relr, relc = zip(*tasks)
+    runs = [(KIND_UPD, {"wr": np.asarray(wr), "wc": np.asarray(wc),
+                        "dst": np.asarray(d) * nb, "aux": np.asarray(blkn),
+                        "srcn": np.asarray(srcn)},
+             np.stack(relr), np.stack(relc)),
+            (KIND_UPD, {"wr": dense["lor"], "wc": dense["loc"],
+                        "dst": dense["dst"].astype(np.int64) * nb,
+                        "aux": dense["blkn"], "srcn": dense["srcn"]},
+             dense["relr"], dense["relc"])]
+    return runs, ntile * nb
+
+
+def tables_to_device(stream: dict, dev_keys, meta_keys, device,
+                     host_keys=("run_ptr", "run_kind", "run_seg", "run_rel",
+                                "run_split")) -> dict:
     """The tables ``dev_keys`` of a stream as int32 tensors on ``device``;
-    the per-run tables stay available on the host (under ``host``) for the
-    plain version's loop over the runs, and ``meta_keys`` are copied."""
+    the per-run tables ``host_keys`` stay available on the host (under
+    ``host``) for the launches and the plain version's loop over the runs,
+    and ``meta_keys`` are copied."""
     out = {k: torch.as_tensor(np.ascontiguousarray(stream[k], np.int32),
                               device=device) for k in dev_keys}
-    out["host"] = {k: np.asarray(stream[k]) for k in
-                   ("run_ptr", "run_kind", "run_seg", "run_rel",
-                    "run_split")}
+    out["host"] = {k: np.asarray(stream[k]) for k in host_keys}
     for k in meta_keys:
         out[k] = stream[k]
     return out
@@ -259,7 +351,8 @@ def tables_to_device(stream: dict, dev_keys, meta_keys, device) -> dict:
 
 def run_parts(run_kind) -> tuple:
     """The stream's runs in parts of one kind each, UPD runs or POTRF and
-    TRSM runs, as the kernel launches them (one cooperative launch a part):
+    TRSM runs, as the kernel launches them (a launch per UPD run, one
+    cooperative launch per POTRF/TRSM part):
     (part starts with the end appended, int32 [P + 1]; whether each part is
     POTRF/TRSM, int32 [P])."""
     fac = np.asarray(run_kind) != KIND_UPD
@@ -271,10 +364,26 @@ def run_parts(run_kind) -> tuple:
 def stream_to_device(stream: dict, device) -> dict:
     """The factor stream's tables on ``device`` (see
     :func:`tables_to_device`), with its parts (:func:`run_parts`) on the
-    host."""
-    out = tables_to_device(stream, _DEV_KEYS, ("nb", "pool_rows"), device)
+    host.  The kernel reads the packed entries; the plain version's maps
+    ``relr``/``relc`` stay on the host (int16, under ``host``) and go to the
+    device only where the plain version runs, the CPU
+    (:func:`plain_maps`)."""
+    dev = torch.device(device)
+    out = tables_to_device(
+        stream, _DEV_KEYS + (_PLAIN_KEYS if dev.type == "cpu" else ()),
+        ("nb", "pool_rows"), dev, _HOST_KEYS)
+    for k in _PLAIN_KEYS:
+        out["host"][k] = np.asarray(stream[k], np.int16)
     out["parts"], out["part_fac"] = run_parts(stream["run_kind"])
     return out
+
+
+def plain_maps(stream: dict, device) -> dict:
+    """``relr``/``relc`` of a device stream's UPD tasks on ``device``: the
+    stream's own tensors where they are there, else copies of the host's."""
+    return {k: stream[k] if k in stream and stream[k].device == device
+            else torch.as_tensor(stream["host"][k], device=device)
+            for k in _PLAIN_KEYS}
 
 
 def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
@@ -284,6 +393,7 @@ def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
     nb = stream["nb"]
     pool = poolf.view(-1, nb, nb)
     h = stream["host"]
+    maps = plain_maps(stream, poolf.device)
     for r, kind in enumerate(h["run_kind"]):
         t0, t1 = int(h["run_ptr"][r]), int(h["run_ptr"][r + 1])
         sl = slice(t0, t1)
@@ -292,8 +402,8 @@ def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
             apply_updates_plain(poolf, {
                 "dst": stream["dst"][sl] // nb, "lor": stream["wr"][sl],
                 "loc": stream["wc"][sl], "blkn": stream["aux"][sl],
-                "srcn": stream["srcn"][sl], "relr": stream["relr"][rel],
-                "relc": stream["relc"][rel]})
+                "srcn": stream["srcn"][sl], "relr": maps["relr"][rel],
+                "relc": maps["relc"][rel]})
         elif kind == KIND_POTRF:
             blk = (stream["dst"][sl] // nb).to(torch.int64)
             pool[blk] = potrf_plain(pool[blk], stream["aux"][sl])
@@ -309,8 +419,9 @@ def mega_factorize(poolf: torch.Tensor, stream: dict,
     """``poolf`` [rows, nb] float32/float64, factored in place and returned;
     ``stream`` as :func:`stream_to_device` returns it, on the same device.
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``max_blocks`` > 0 caps the kernel's grid (tests of the item loops);
-    the number of blocks launched is left in ``mega_factorize.last_grid``."""
+    ``max_blocks`` > 0 caps the grid of the POTRF/TRSM launches (tests of
+    their item loops; a UPD launch runs one block per segment); the most
+    blocks one of them ran is left in ``mega_factorize.last_grid``."""
     if poolf.device.type == "cpu":
         return mega_factorize_plain(poolf, stream)
     tens = [stream[k] for k in _DEV_KEYS]
@@ -333,10 +444,13 @@ def mega_factorize(poolf: torch.Tensor, stream: dict,
     # one work-item counter per run, zero at launch
     counters = torch.zeros(nruns, dtype=torch.int32, device=poolf.device)
     parts, part_fac = stream["parts"], stream["part_fac"]
+    h = stream["host"]
     with torch.cuda.device(poolf.device):
         status = fn(poolf.data_ptr(), *(t.data_ptr() for t in tens),
                     counters.data_ptr(), nruns, nb, parts.ctypes.data,
-                    part_fac.ctypes.data, len(part_fac), int(max_blocks),
+                    part_fac.ctypes.data, len(part_fac),
+                    h["run_seg"].ctypes.data, h["run_dense"].ctypes.data,
+                    int(max_blocks),
                     ctypes.byref(grid),
                     torch.cuda.current_stream().cuda_stream)
     check_launch(status, "mega_factorize")
