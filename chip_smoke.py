@@ -19,6 +19,8 @@
     python3 chip_smoke.py --entry-only    # only step 6: the entry points
     python3 chip_smoke.py --forest-only   # only step 7: Options(ndevices=k),
                                           # the rhs-sharded solve, the C API
+    python3 chip_smoke.py --precision-only  # only step 8: precision
+                                          # 'default' and 'high'
     python3 chip_smoke.py --keep-call DIR # the keep rule of the shared
                                           # update body: parent (a tree
                                           # unpacked at DIR), change,
@@ -97,7 +99,19 @@ Needs one CUDA device, ``nvcc`` and no network.  It
      the top); the rhs-sharded solve at poisson3d(64),
      nrhs 64, over 2 and 4 shards; and ``examples/c/simple.c`` built
      against the C interface's library (``native/capi.cpp``) and run on the
-     card.
+     card;
+  8. drives the reduced-precision operating points (``precision_phase``):
+     poisson3d(64) 'mega' and poisson3d(32) 'scan' and 'mega' through
+     ``factor``/``solve`` at precision='default' (the update body in one
+     TF32 pass on the tensor cores, refine=6) and 'high' (the IEEE body,
+     refine=2), each with its launch counts (the update body's variant of
+     the precision must be the one that ran), the refined backward error
+     and its end-to-end times; the level path's factor_ms and device time
+     at the three precisions side by side; a negative pivot at 'default';
+     every UPD run of both streams and K3 at every level of 32³ and 64³ in
+     TF32 against the plain version of the variant (1e-5 of the size of the
+     update) and the IEEE kernel, with their times and bounds; the edge
+     tables; the TF32 rounding bit for bit against ``round_tf32``.
 
 One JSON object per line; any failed check raises and the exit code is not
 0.  The last line is {"ok": true, "device": {...}}.
@@ -238,16 +252,18 @@ def exec_granularity(stream: bool):
             hu.EXEC_SLAB)
 
 
-def update_level_work(tasks: dict, nb: int, stream: bool = False) -> dict:
+def update_level_work(tasks: dict, nb: int, stream: bool = False,
+                      slab: int | None = None) -> dict:
     """What one level's update micro-tasks need, from the executor's own
     tables: elements gathered (unmasked rows and columns, trimmed to the
     source's width), operations of the unmasked rows and columns with the
     full and with the trimmed contraction, of what the update body executes
     (:func:`exec_granularity`: the live rows and columns rounded up, or the
-    aligned blocks that hold a live one, and the contraction rounded up),
-    and of a dense nb x nb x nb product per task with and without the
-    trim."""
+    aligned blocks that hold a live one, and the contraction rounded up,
+    to ``slab`` where given: the tensor-core body's), and of a dense
+    nb x nb x nb product per task with and without the trim."""
     compact, er, ec, es = exec_granularity(stream)
+    es = es if slab is None else slab
     ar = torch.arange(nb, device=tasks["relr"].device)
     mr = tasks["relr"] >= 0
     mc = (tasks["relc"] >= 0) & (ar[None, :] < tasks["blkn"][:, None])
@@ -336,12 +352,13 @@ def update_rates(gflop: dict, ms: float, device_ms=None) -> dict:
 
 
 def main_options(m: int, schedule: str, **kw):
-    """bench.py's configuration of poisson3d(m), the main path's."""
+    """bench.py's configuration of poisson3d(m), the main path's (refine 2
+    unless ``kw`` says otherwise)."""
     import spllt_tpu_torch as st
 
+    kw.setdefault("refine", 2)
     return st.Options(ordering="nd-grid", grid_shape=(m, m, m), nb=128,
-                      nemin=192, schedule=schedule, dtype="float32",
-                      refine=2, **kw)
+                      nemin=192, schedule=schedule, dtype="float32", **kw)
 
 
 def main_path(m: int, card: str, full_checks: bool, schedule: str):
@@ -1687,9 +1704,14 @@ def profile_main_path(num, fex, sex, nrhs):
                        and "::" + k + "_" in e.key) / 1e3
                 for k in ("potrf", "trsm", "update", "left_solve",
                           "mega_factor", "mega_solve")}
+        # the host's side: the operators' own CPU time, largest first
+        cpu = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in ka
+                      if e.device_type == DeviceType.CPU),
+                     key=lambda kv: -kv[1])[:8]
         shares[tag] = {"device_kernel_ms": dev_ms,
                        "by_hand_kernel_ms": {k: v for k, v in ours.items()
-                                             if v}}
+                                             if v},
+                       "host_self_cpu_ms_top": dict(cpu)}
         tables.append(f"==== {tag}: device kernel time {dev_ms:.3f} ms\n"
                       + ka.table(sort_by="self_device_time_total",
                                  row_limit=25, max_name_column_width=70)
@@ -2084,7 +2106,8 @@ def keep_metrics(card: str) -> dict:
     script runs in, at poisson3d(32) and (64) on the main path's options:
     K4's device time (fresh pool copy before each launch, less the copy),
     its per-run times by kind (:func:`factor_run_times`: UPD, POTRF and
-    TRSM, each also over its narrow and its wide runs), the stream's table
+    TRSM, each also over its narrow and its wide runs), the UPD runs' times
+    each launched alone (:func:`upd_alone_times`), the stream's table
     bytes and ``factor_ms``; and K3's device time summed over the level
     path's levels (each level's launches back to back on a random pool, as
     :func:`scan_level_times` times them)."""
@@ -2103,7 +2126,8 @@ def keep_metrics(card: str) -> dict:
         kinds = {k: {f: v[f] for f in ("runs", "ms", "narrow_ms", "wide_ms")}
                  for k, v in rt["by_kind"].items()}
         row = dict(k4_device_ms=dms, k4_whole_ms=rt["whole_ms"],
-                   by_kind=kinds, factor_ms_mega=rec["factor_ms"],
+                   by_kind=kinds, upd_alone=upd_alone_times(fex, pool0),
+                   factor_ms_mega=rec["factor_ms"],
                    stream_table_bytes=table_bytes(fex.stream),
                    k4_rel_err=checks["rel"])
         del num, fex, sex, pool0, buf
@@ -2123,6 +2147,41 @@ def keep_metrics(card: str) -> dict:
     return out
 
 
+def upd_alone_times(fex, pool0: torch.Tensor, reps: int = 5) -> dict:
+    """The UPD runs of the factor stream of ``fex``, each launched alone
+    (:func:`one_run`) on a copy of the pool as the runs before it left it:
+    its device time (:func:`time_device_ms`: ``reps`` launches back to back
+    behind a sleep kernel, the smaller of two passes), summed over all UPD
+    runs and over the narrow ones (fewer segments than two blocks an SM
+    fill: the update body's occupancy) and the wide ones.  Repeated
+    launches, where :func:`factor_run_times` has one cut difference a
+    run."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    nb = fex.nb
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    stream = fex.stream
+    h = stream["host"]
+    pool = pool0.clone().view(-1, nb)
+    scratch = torch.empty_like(pool)
+    out = dict(runs=0, ms=0.0, narrow_runs=0, narrow_ms=0.0, wide_ms=0.0)
+    for r, kind in enumerate(h["run_kind"]):
+        one = one_run(stream, r)
+        if kind == mk.KIND_UPD:
+            scratch.copy_(pool)
+            ms = time_device_ms(lambda: mk.mega_factorize(scratch, one), reps)
+            narrow = int(h["run_seg"][r + 1]) - int(h["run_seg"][r]) - 1 \
+                < blocks
+            out["runs"] += 1
+            out["ms"] += ms
+            out["narrow_runs"] += int(narrow)
+            out["narrow_ms" if narrow else "wide_ms"] += ms
+        mk.mega_factorize(pool, one)
+    del pool, scratch
+    torch.cuda.empty_cache()
+    return out
+
+
 # the keep rule of a shared body: the candidate no slower than the parent
 # by more than the spread of device times between runs of one tree (1 %),
 # and no UPD run kind slower by more than 5 %
@@ -2134,7 +2193,9 @@ def keep_call(parent: str, card: str) -> dict:
     unpacked at ``parent`` (which gets a copy of this script) and of this
     tree, each in a process of its own, and the verdict: K4's device time
     and K3's no slower at either size, no UPD run kind (all, narrow, wide
-    runs) slower by more than 5 %, on the means of each tree's two runs."""
+    runs; by the cut differences of :func:`factor_run_times` and by the
+    runs launched alone, :func:`upd_alone_times`) slower by more than 5 %,
+    on the means of each tree's two runs (each run's value beside)."""
     import shutil
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2160,12 +2221,15 @@ def keep_call(parent: str, card: str) -> dict:
                  ("k3_device_ms", lambda x: x["k3_device_ms"], KEEP_NOISE)]
         tests += [(f"upd_{f}", lambda x, f=f: x["by_kind"]["upd"][f],
                    KEEP_UPD_KIND) for f in ("ms", "narrow_ms", "wide_ms")]
+        tests += [(f"upd_alone_{f}", lambda x, f=f: x["upd_alone"][f],
+                   KEEP_UPD_KIND) for f in ("ms", "narrow_ms", "wide_ms")]
         for name, get, limit in tests:
             par, chg = mean("parent", size, get), mean("change", size, get)
             ratio = chg / par if par > 0 else (0.0 if chg == 0 else
                                                float("inf"))
-            ratios[f"{size}_{name}"] = dict(parent=par, change=chg,
-                                            ratio=ratio, limit=limit)
+            ratios[f"{size}_{name}"] = dict(
+                parent=par, change=chg, ratio=ratio, limit=limit,
+                runs=[get(r[size]) for r in runs])
             keep &= ratio <= limit
     return dict(card=card, order=[r["tree"] for r in runs], runs=runs,
                 ratios=ratios, keep=bool(keep))
@@ -2537,9 +2601,14 @@ def plain_kernels():
         yield
 
 
-def forest_options(m: int, schedule: str, k: int, dtype: str = "float32"):
-    return dataclasses.replace(main_options(m, schedule), ndevices=k,
-                               dtype=dtype)
+def forest_options(m: int, schedule: str, k: int, dtype: str = "float32",
+                   precision: str = "highest"):
+    """main_options with ``ndevices=k``, ``dtype`` and ``precision``
+    (refine 6 at 'default', bench.py's pair, else 2)."""
+    return dataclasses.replace(
+        main_options(m, schedule, precision=precision,
+                     refine=6 if precision == "default" else 2),
+        ndevices=k, dtype=dtype)
 
 
 def forest_devices(k: int, ncards: int, symb, opts):
@@ -2642,17 +2711,23 @@ def forest_run(symb, a, b, opts, ncards: int, ref_pool, plain_check: bool,
     the cards are there, else on [cuda:0] * k) with its checks, launches
     and times; returns (record, kernel launches)."""
     import spllt_tpu_torch as st
+    from spllt_tpu_torch.numeric.hopper_update import (VARIANT_TAGS,
+                                                       body_variant)
 
     wrappers = kernel_wrappers()
     k = opts.ndevices
     devices = forest_devices(k, ncards, symb, opts)
     for w in wrappers.values():
         w.launches = 0
+    variant_launches(reset=True)
     t0 = time.perf_counter()
     num = st.factor(symb, options=opts, devices=devices)
     torch.cuda.synchronize()
     first_factor_s = time.perf_counter() - t0
     launches = {nm: int(w.launches) for nm, w in wrappers.items()}
+    # the update body's launches by variant (the factor's: a solve launches
+    # none)
+    counts = variant_launches()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -2661,7 +2736,17 @@ def forest_run(symb, a, b, opts, ncards: int, ref_pool, plain_check: bool,
     for nm, w in wrappers.items():
         launches[nm] += int(w.launches)
     fx = num.mdf
-    tag = f"{opts.schedule} k={k} {opts.dtype}"
+    tag = f"{opts.schedule} k={k} {opts.dtype} {opts.precision}"
+    # the update body's variant of the precision, and no other, ran
+    body = "mega_factor" if opts.schedule == "mega" else "update"
+    ran = body + VARIANT_TAGS[body_variant(getattr(torch, opts.dtype),
+                                           opts.precision)][0]
+    require(all(n == 0 for nm, n in counts.items() if nm != ran),
+            f"forest {tag}: another update body than {ran} ran: {counts}")
+    if ran != body:
+        require(launches[body] == 0, f"forest {tag}: the IEEE update body "
+                                     f"ran: {launches}")
+        launches[body] = counts[ran]
     require(x.shape == b.shape and np.isfinite(x).all(),
             f"forest {tag}: solution has the wrong shape or is not finite")
     err = bwd_err(a, x, b)
@@ -2682,13 +2767,20 @@ def forest_run(symb, a, b, opts, ncards: int, ref_pool, plain_check: bool,
             f"forest {tag}: launches {path}, expected {expected}")
     require(not any(v for nm, v in launches.items() if nm not in path),
             f"forest {tag}: kernels of the other schedule ran: {launches}")
-    tol = 1e-11 if opts.dtype == "float64" else 1e-5
+    path[ran] = path.pop(body)
+    # against the single-device factor of the same precision: IEEE in f64
+    # and f32; in TF32 ('default') the shards' sums in another order move
+    # an operand across a TF32 rounding boundary now and then (2^-11 of
+    # it), as far as the 'default' factor's own distance from the oracle
+    tol = {"float64": 1e-11, "float32": 1e-5}[opts.dtype] \
+        if ran == body else 1e-3
     mabs, rel = forest_pool_err(num.pool, fx.md, ref_pool)
     require(rel <= tol, f"forest {tag}: global pool differs from the "
                         f"single-device factor: rel {rel} > {tol}")
     part = fx.md.part
     rec = dict(
         schedule=opts.schedule, ndevices=k, dtype=opts.dtype,
+        precision=opts.precision, refine=opts.refine, update_body=ran,
         devices=[str(d) for d in fx.devices],
         route="Options(ndevices)" if devices is None else
         "factor(devices=[cuda:0] * k)",
@@ -2816,11 +2908,12 @@ def forest_phase(card: str, large: bool) -> dict:
     (unless not ``large``), 32³ 'scan' at k = 2 and 4, 32³ 'mega' k = 2
     (rerun bit for bit; the 'scan' and 'mega' k = 2 runs also against the
     plain versions on the card and with a negative pivot in a shard and in
-    the top) and in float64; each against the
-    single-device factor of its schedule and dtype (whose ``factor_ms`` is
-    timed beside it), with the executors per shard, each kernel's launches
-    (exactly those the executors call for), the refined backward error and
-    the times of every phase.  Then the rhs-sharded solve at the largest
+    the top), in float64 and at precision='default' (refine 6: the update
+    body in TF32 in every shard and the top); each against the
+    single-device factor of its schedule, dtype and precision (whose
+    ``factor_ms`` is timed beside it), with the executors per shard, each
+    kernel's launches (exactly those the executors call for), the refined
+    backward error and the times of every phase.  Then the rhs-sharded solve at the largest
     size, nrhs 64, over 2 and 4 shards, and the C example on the card.
     Returns {kernel: {run: launches}}."""
     import spllt_tpu_torch as st
@@ -2829,9 +2922,13 @@ def forest_phase(card: str, large: bool) -> dict:
     emit("forest_cards", card=card, cards_visible=ncards,
          shards_share_one_card=ncards < 2, note="on one card the shards of "
          "a phase run one after the other; phase A is timed shard by shard")
-    runs = {64: [("mega", 2, "float32"), ("mega", 4, "float32")],
-            32: [("scan", 2, "float32"), ("scan", 4, "float32"),
-                 ("mega", 2, "float32"), ("mega", 2, "float64")]}
+    runs = {64: [("mega", 2, "float32", "highest"),
+                 ("mega", 4, "float32", "highest")],
+            32: [("scan", 2, "float32", "highest"),
+                 ("scan", 4, "float32", "highest"),
+                 ("mega", 2, "float32", "highest"),
+                 ("mega", 2, "float64", "highest"),
+                 ("mega", 2, "float32", "default")]}
     launches = {}
     for m in (64, 32) if large else (32,):
         a = st.poisson3d(m)
@@ -2842,20 +2939,22 @@ def forest_phase(card: str, large: bool) -> dict:
         symb = st.analyse(a, main_options(m, "mega"))
         t_analyse = time.perf_counter() - t0
         singles = {}
-        for schedule, k, dtype in runs[m]:
-            if (schedule, dtype) not in singles:
-                opts1 = forest_options(m, schedule, 1, dtype)
+        for schedule, k, dtype, prec in runs[m]:
+            if (schedule, dtype, prec) not in singles:
+                opts1 = forest_options(m, schedule, 1, dtype, prec)
                 num1 = st.factor(symb, options=opts1)
-                singles[schedule, dtype] = (num1, time_ms(
+                singles[schedule, dtype, prec] = (num1, time_ms(
                     lambda: st.factor(symb, options=opts1), 3))
-            num1, single_ms = singles[schedule, dtype]
+            num1, single_ms = singles[schedule, dtype, prec]
+            first = (m, k, dtype, prec) == (32, 2, "float32", "highest")
             rec, path = forest_run(
-                symb, a, b, forest_options(m, schedule, k, dtype), ncards,
-                num1.pool, plain_check=(m, k, dtype) == (32, 2, "float32"),
-                rerun=(m, schedule, k, dtype) == (32, "mega", 2, "float32"))
-            name = f"{m}^3 {schedule} k={k} {dtype}"
+                symb, a, b, forest_options(m, schedule, k, dtype, prec),
+                ncards, num1.pool, plain_check=first,
+                rerun=first and schedule == "mega")
+            name = f"{m}^3 {schedule} k={k} {dtype}" + (
+                "" if prec == "highest" else f" {prec}")
             emit("forest_run", card=card, matrix=f"poisson3d({m})", nb=128,
-                 nemin=192, refine=2, nrhs=4, host_analyse_s=t_analyse,
+                 nemin=192, nrhs=4, host_analyse_s=t_analyse,
                  single_device_factor_ms=single_ms, **rec)
             for nm, v in path.items():
                 launches.setdefault(nm, {})[name] = v
@@ -2863,11 +2962,609 @@ def forest_phase(card: str, large: bool) -> dict:
         if m == (64 if large else 32):
             emit("rhs_sharded", card=card, matrix=f"poisson3d({m})",
                  nrhs=64, refine=2, **rhs_sharded_run(
-                     singles["mega", "float32"][0], a, ncards))
+                     singles["mega", "float32", "highest"][0], a, ncards))
         del singles
         torch.cuda.empty_cache()
     emit("capi_round_trip", **capi_run(card))
     return launches
+
+
+# --------------------------------------------------------------------- #
+# the reduced-precision operating points: at precision='default' the update
+# body in one TF32 pass on the tensor cores; 'high' runs the IEEE body
+# --------------------------------------------------------------------- #
+H100_TF32_FLOPS = 495e12          # dense TF32 on the tensor cores (SXM)
+# the configurations of the precision phase: (precision, refine), the
+# refinement steps bench.py pairs with each operating point
+TC_RUNS = (("default", 6), ("high", 2))
+# a tensor-core kernel against the plain version of its own precision: the
+# same TF32-rounded operands, whose products float32 holds exactly, summed
+# in another float32 order, so the gap is float32 rounding of the sums:
+# 1e-5 of the size of the update
+TC_TOL = 1e-5
+
+
+def update_variant(precision: str) -> str:
+    """The update body's product at ``precision`` for the main path's
+    float32 pools (``hopper_update.body_variant``: 'tf32' or 'ieee')."""
+    from spllt_tpu_torch.numeric.hopper_update import body_variant
+
+    return body_variant(torch.float32, precision)
+
+
+def variant_launches(reset: bool = False) -> dict:
+    """The launch counts of the update body's variants on both of its
+    wrappers, by kernel name: the wrapper's name and the variant's entry
+    point suffix ('update', 'update_tf32', 'mega_factor',
+    'mega_factor_tf32'; ``hopper_update.VARIANT_TAGS``), set to 0 first
+    where ``reset``."""
+    from spllt_tpu_torch.numeric.hopper_update import VARIANT_TAGS
+
+    wrappers, out = kernel_wrappers(), {}
+    for name in ("update", "mega_factor"):
+        for suffix, count in VARIANT_TAGS.values():
+            if reset:
+                setattr(wrappers[name], count, 0)
+            out[name + suffix] = int(getattr(wrappers[name], count))
+    return out
+
+
+def tc_work(tasks: dict, nb: int, stream: bool) -> tuple:
+    """(bytes, operations, bound ms) of update tasks on the tensor-core
+    body: bytes as :func:`update_work_bound` counts them, the operations
+    the body executes (the live rows and columns rounded up to 16, srcn to
+    the tensor-core slab), and the bound max(bytes / 3.35 TB/s,
+    operations / 495 TFLOP/s)."""
+    from spllt_tpu_torch.numeric.hopper_update import EXEC_SLAB_TC
+
+    w = update_level_work(tasks, nb, stream, slab=EXEC_SLAB_TC)
+    nbytes = update_work_bound(w, nb, 4)[0]
+    ops = w["executed"]
+    return nbytes, ops, 1e3 * max(nbytes / H100_BYTES_PER_S,
+                                  ops / H100_TF32_FLOPS)
+
+
+def precision_run(a, symb, m: int, schedule: str, precision: str,
+                  refine: int, card: str, b: np.ndarray):
+    """factor → refined solve of poisson3d(m) through the public API at
+    ``precision`` (``symb`` analysed once for all runs of this size), with
+    every launch count set to 0 just before and read just after: the
+    update body's variant of the precision (:func:`update_variant`) must
+    have run, no other; the refined backward error ≤ 1e-13; the executors
+    those of ``schedule``.  Then the end-to-end times as :func:`main_path`
+    takes them.  Returns (record, num, factor executor, solve executor)."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+    from spllt_tpu_torch.numeric.hopper_update import VARIANT_TAGS
+
+    opts = main_options(m, schedule, precision=precision, refine=refine)
+    v = update_variant(precision)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    variant_launches(reset=True)
+    t0 = time.perf_counter()
+    num = st.factor(symb, options=opts)
+    torch.cuda.synchronize()
+    t_first_factor = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = st.solve(num, b)
+    t_first_solve = time.perf_counter() - t0
+    launches = {k: int(w.launches) for k, w in wrappers.items()}
+    launches.update(variant_launches())
+
+    tag = f"poisson3d({m}) {schedule} precision='{precision}'"
+    require(x.shape == b.shape and np.isfinite(x).all(),
+            f"{tag}: the solution has the wrong shape or is not finite")
+    err = bwd_err(a, x, b)
+    require(err <= BWD_ERR_MAX, f"{tag}: refined backward error {err} > "
+                                f"{BWD_ERR_MAX} with refine={refine}")
+    body = "mega_factor" if schedule == "mega" else "update"
+    ran = body + VARIANT_TAGS[v][0]
+    for k in [ran] + [k for k in PATH_KERNELS[schedule] if k != body]:
+        require(launches[k] > 0, f"{tag}: kernel {k} was never launched")
+    require(all(n == 0 for k, n in variant_launches().items() if k != ran),
+            f"{tag}: another update body than {ran} ran: {launches}")
+    family = "mega" if schedule == "mega" else "level"
+    fex = next(e for k, e in symb._cache.items()
+               if k[0] == "fex" and k[1] == family and k[4] == precision)
+    sex = num._solve_execs[(b.shape[1],)]
+    require((type(fex).__name__, type(sex).__name__)
+            == PATH_EXECUTORS[schedule] and fex.precision == precision,
+            f"{tag}: ran {type(fex).__name__} / {type(sex).__name__} at "
+            f"{fex.precision}")
+
+    def factor_only():
+        fex(assemble_torch(num.plan, num.values_perm, torch.float32,
+                           num.pool.device))
+
+    factor_ms = time_ms(factor_only, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.solve(num, b)
+    solve_wall_ms = (time.perf_counter() - t0) * 1e3
+    xp = torch.zeros((a.n + 1, b.shape[1]), dtype=torch.float32,
+                     device="cuda")
+    xp[:a.n] = torch.as_tensor(b, device="cuda").float()
+    solve_ms = time_ms(lambda: sex.full(num.pool, xp), 3)
+    rec = dict(matrix=f"poisson3d({m})", schedule=schedule,
+               precision=precision, variant=v, refine=refine,
+               refinement_steps=refine, nrhs=int(b.shape[1]), bwd_err=err,
+               launches=launches, first_factor_s=t_first_factor,
+               first_solve_s=t_first_solve, factor_ms=factor_ms,
+               solve_fwd_bwd_ms=solve_ms,
+               refined_solve_wall_ms=solve_wall_ms, card=card)
+    return rec, num, fex, sex
+
+
+def scan_precision_share(a, symb, m: int, b: np.ndarray, card: str) -> dict:
+    """The level path's factorization of poisson3d(m) at 'highest',
+    'default' and 'high' on one symbolic object, side by side: factor_ms
+    as :func:`main_path` takes it (CUDA events as the host issues the
+    calls, the assembly included), in three interleaved rounds of 5 calls
+    a precision; the device allocations those calls made
+    (``num_device_alloc`` of the caching allocator); and the profiler's
+    device kernel time of one factorization at each and its operators'
+    own CPU time (:func:`profile_main_path`).  Where factor_ms differs by
+    more than the device time does, the host issues the difference."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+
+    precs = ("highest", "default", "high")
+    nums, fexs = {}, {}
+    for p in precs:
+        nums[p] = st.factor(symb, options=main_options(m, "scan",
+                                                       precision=p))
+        st.solve(nums[p], b)
+        fexs[p] = next(e for k, e in symb._cache.items()
+                       if k[0] == "fex" and k[1] == "level" and k[4] == p)
+    out = {p: dict(factor_ms_rounds=[], device_allocs=0) for p in precs}
+    for _ in range(3):
+        for p in precs:
+            num, fex = nums[p], fexs[p]
+            fn = lambda: fex(assemble_torch(num.plan, num.values_perm,
+                                            torch.float32, num.pool.device))
+            before = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            out[p]["factor_ms_rounds"].append(time_ms(fn, 5))
+            out[p]["device_allocs"] += \
+                torch.cuda.memory_stats().get("num_device_alloc", 0) - before
+    for p in precs:
+        o = out[p]
+        o["factor_ms_median"] = float(np.median(o["factor_ms_rounds"]))
+        sex = nums[p]._solve_execs[(b.shape[1],)]
+        prof, _ = profile_main_path(nums[p], fexs[p], sex, b.shape[1])
+        o.update(prof["factor"])
+        o["host_share_ms"] = o["factor_ms_median"] - o["device_kernel_ms"]
+    del nums, fexs
+    torch.cuda.empty_cache()
+    return dict(card=card, matrix=f"poisson3d({m})", schedule="scan", **out)
+
+
+def negative_pivot_raises(a, symb, opts) -> bool:
+    """A factorization of ``a`` with one diagonal entry made negative (the
+    same pattern) must raise NotPositiveDefiniteError at ``opts``."""
+    import spllt_tpu_torch as st
+
+    diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
+    vals = a.values.copy()
+    vals[np.flatnonzero(diag)[a.n // 2]] = -1.0
+    try:
+        st.factor(symb, st.CscMatrix(a.n, a.colptr, a.rowind, vals),
+                  options=opts)
+    except st.NotPositiveDefiniteError:
+        return True
+    raise AssertionError(f"a negative pivot did not raise "
+                         f"NotPositiveDefiniteError at {opts.precision!r}, "
+                         f"schedule {opts.schedule!r}")
+
+
+def one_run(stream: dict, r: int) -> dict:
+    """Run ``r`` of a device factor stream as a stream of its own: the
+    per-run tables cut to that run, the task tables whole (the run's
+    offsets into them are absolute)."""
+    from spllt_tpu_torch.numeric.megakernel import run_parts
+
+    h = stream["host"]
+    out = dict(stream, run_ptr=stream["run_ptr"][r:r + 2],
+               run_kind=stream["run_kind"][r:r + 1],
+               run_split=stream["run_split"][r:r + 1])
+    out["host"] = dict(h, **{k: h[k][r:r + 2] for k in ("run_ptr",
+                                                        "run_seg")},
+                       **{k: h[k][r:r + 1] for k in ("run_kind", "run_rel",
+                                                     "run_split",
+                                                     "run_dense")})
+    out["parts"], out["part_fac"] = run_parts(h["run_kind"][r:r + 1])
+    return out
+
+
+def upd_run_checks(fex, pool0: torch.Tensor) -> dict:
+    """Every run of the factor stream of ``fex``, each launched alone on the
+    pool as the runs before it left it (the IEEE kernel's): each UPD run in
+    TF32 against the plain version of that variant (within ``TC_TOL`` of
+    the size of the run's update) and against the IEEE kernel (the
+    variant's distance from IEEE).  For TF32 and IEEE the UPD runs' summed
+    times (each run's launches as the host issues them and back to back on
+    the device, on a copy of its input; and over the runs with fewer
+    segments than the card has blocks, "narrow"), the plain version's
+    (CUDA events, one call a run) and the bound; and the whole stream's
+    device time at each variant (a fresh copy of the assembled pool before
+    each call, less the copy), and what of it is not in the UPD runs (the
+    POTRF and TRSM parts and the gaps between launches)."""
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    nb = fex.nb
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    stream = with_plain_maps(fex.stream)
+    h = stream["host"]
+    pool = pool0.clone().view(-1, nb)
+    scratch = torch.empty_like(pool)
+    precs = (("ieee", "highest"), ("tf32", "default"))
+    out = {v: dict(runs=0, max_abs=0.0, rel=0.0, ieee_rel=0.0, ms=0.0,
+                   device_ms=0.0, narrow_runs=0, narrow_device_ms=0.0,
+                   plain_ms=0.0, bytes=0, ops=0, bound_ms=0.0,
+                   bound_by_ops=0) for v, _ in precs}
+    for r, kind in enumerate(h["run_kind"]):
+        one = one_run(stream, r)
+        if kind != mk.KIND_UPD:
+            mk.mega_factorize(pool, one)
+            continue
+        tasks = upd_run_tasks(stream, r)
+        narrow = int(tasks["seg_ptr"].numel()) - 1 < blocks
+        ieee = None
+        for v, prec in precs:
+            o = out[v]
+            got = pool.clone()
+            mk.mega_factorize(got, one, precision=prec)
+            ref = pool.clone()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            mk.mega_factorize_plain(ref, one, precision=prec)
+            e1.record()
+            torch.cuda.synchronize()
+            o["plain_ms"] += e0.elapsed_time(e1)
+            mabs, rel = rel_err(got, ref, pool)
+            require(rel <= TC_TOL, f"UPD run {r} at {v}: kernel differs from "
+                                   f"the plain version: rel {rel} > {TC_TOL}")
+            del ref
+            if v == "ieee":
+                ieee = got
+            else:
+                o["ieee_rel"] = max(o["ieee_rel"],
+                                    rel_err(got, ieee, pool)[1])
+                nbytes, ops, bms = tc_work(tasks, nb, True)
+                o["bytes"] += nbytes
+                o["ops"] += ops
+                o["bound_ms"] += bms
+                o["bound_by_ops"] += int(ops / H100_TF32_FLOPS
+                                         > nbytes / H100_BYTES_PER_S)
+                del got
+            scratch.copy_(pool)
+            run = lambda: mk.mega_factorize(scratch, one, precision=prec)
+            o["ms"] += time_ms(run, 3)
+            dms = time_device_ms(run, 3)
+            o["device_ms"] += dms
+            o["narrow_runs"] += int(narrow)
+            o["narrow_device_ms"] += dms if narrow else 0.0
+            o["runs"] += 1
+            o["max_abs"], o["rel"] = max(o["max_abs"], mabs), max(o["rel"],
+                                                                  rel)
+        pool.copy_(ieee)
+        del ieee
+    for v, prec in precs:
+        o = out[v]
+        o["k4_device_ms"] = time_device_prepared_ms(
+            lambda: pool.copy_(pool0.view(-1, nb)),
+            lambda: mk.mega_factorize(pool, fex.stream, precision=prec), 3)
+        o["k4_not_upd_ms"] = o["k4_device_ms"] - o["device_ms"]
+    del pool, scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+def k3_level_checks(fex) -> dict:
+    """K3 at every level of the level executor ``fex`` on a random pool of
+    the real pool's shape, in TF32: against the plain version of that
+    variant (within ``TC_TOL`` of the size of the update) and bit for bit
+    against a second launch, its distance from the IEEE kernel, its time
+    as the host issues the launches and on the device alone, the plain
+    version's, and the bound; the IEEE kernel's device time beside."""
+    from spllt_tpu_torch.numeric import hopper_update as hu
+
+    rng = np.random.default_rng(SEED + 8)
+    nb = fex.nb
+    poolf = torch.as_tensor(
+        rng.standard_normal((fex.pool_rows, nb), dtype=np.float32),
+        device="cuda")
+    work = poolf.clone()
+    o = dict(levels=0, max_abs=0.0, rel=0.0, ieee_rel=0.0, ms=0.0,
+             device_ms=0.0, ieee_device_ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+             bound_ms=0.0, bound_by_ops=0)
+    for lv in fex.levels:
+        if "upd" not in lv:
+            continue
+        t = lv["upd"]
+        ieee = hu.apply_updates(poolf.clone(), t)
+        o["ieee_device_ms"] += time_device_ms(
+            lambda: hu.apply_updates(work, t), 5)
+        got = hu.apply_updates(poolf.clone(), t, "default")
+        again = hu.apply_updates(poolf.clone(), t, "default")
+        ref = hu.apply_updates_plain(poolf.clone(), t, "default")
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), "K3 in TF32: two launches on the "
+                                         "same pool differ")
+        mabs, rel = rel_err(got, ref, poolf)
+        require(rel <= TC_TOL, f"K3 in TF32: kernel differs from the plain "
+                               f"version: rel {rel} > {TC_TOL}")
+        o["ieee_rel"] = max(o["ieee_rel"], rel_err(got, ieee, poolf)[1])
+        del got, again, ref, ieee
+        nbytes, ops, bms = tc_work(t, nb, False)
+        o["bytes"] += nbytes
+        o["ops"] += ops
+        o["bound_ms"] += bms
+        o["bound_by_ops"] += int(ops / H100_TF32_FLOPS
+                                 > nbytes / H100_BYTES_PER_S)
+        o["ms"] += time_ms(lambda: hu.apply_updates(work, t, "default"), 5)
+        o["device_ms"] += time_device_ms(
+            lambda: hu.apply_updates(work, t, "default"), 5)
+        o["plain_ms"] += time_ms(
+            lambda: hu.apply_updates_plain(work, t, "default"), 3)
+        o["levels"] += 1
+        o["max_abs"], o["rel"] = max(o["max_abs"], mabs), max(o["rel"], rel)
+    del poolf, work
+    torch.cuda.empty_cache()
+    return o
+
+
+def tc_edge_checks() -> dict:
+    """The TF32 body at the edges: K3 on the hand-made tables
+    ``compact_edge_tasks``, ``dense_edge_tasks`` and ``edge_case_tasks``
+    (against the plain version of the variant within ``TC_TOL`` of the size
+    of the update, bit for bit against a second launch) and K4's UPD
+    launches on each run of ``megakernel.upd_edge_runs`` as a stream of its
+    own (through :func:`edge_check`: 1, 3 and all blocks), nb 48, 128 and
+    256.  Each run gets the same input in the kernel and in the plain
+    version: chained, the second run would read the first one's outputs,
+    whose float32 differences of an ulp move an operand across a TF32
+    rounding boundary now and then (2^-11 of it, not a fault of either).
+    Returns the errors by case and each case's distance from the IEEE
+    kernel on the same tables (of the size of the update)."""
+    from spllt_tpu_torch.numeric import hopper_update as hu
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    rng = np.random.default_rng(SEED + 12)
+    out, dist = {}, {}
+    for nb in (48, 128, 256):
+        tables = [("compact", *hu.compact_edge_tasks(nb, SEED + nb)),
+                  ("dense", *hu.dense_edge_tasks(nb, SEED + nb)),
+                  ("edge", hu.edge_case_tasks(nb, 16 * nb, SEED + nb),
+                   16 * nb)]
+        for tag, tasks_np, rows_ in tables:
+            t = hu.tasks_to_device(tasks_np, nb, rows_, "cuda")
+            pool = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                                   dtype=torch.float32, device="cuda")
+            ieee = hu.apply_updates(pool.clone(), t)
+            got = hu.apply_updates(pool.clone(), t, "default")
+            again = hu.apply_updates(pool.clone(), t, "default")
+            ref = hu.apply_updates_plain(pool.clone(), t, "default")
+            torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"K3 {tag} nb {nb} in TF32: two launches differ")
+            mabs, rel = rel_err(got, ref, pool)
+            require(rel <= TC_TOL, f"K3 {tag} nb {nb} in TF32: rel {rel}")
+            out[f"k3_{tag}_nb{nb}"] = dict(max_abs=mabs, rel=rel)
+            dist[f"k3_{tag}_nb{nb}"] = rel_err(got, ieee, pool)[1]
+        runs, rows_ = mk.upd_edge_runs(nb, SEED + nb)
+        for i, run in enumerate(runs):
+            stream = with_plain_maps(mk.stream_to_device(
+                mk.assemble_stream([run], nb, rows_), "cuda"))
+            pool0 = torch.as_tensor(rng.standard_normal((rows_, nb)),
+                                    dtype=torch.float32, device="cuda")
+            ieee = mk.mega_factorize(pool0.clone(), stream)
+            tag = f"k4_upd_run{i + 1}_nb{nb}"
+            got = edge_check(
+                out, tag,
+                lambda mb: mk.mega_factorize(pool0.clone(), stream,
+                                             max_blocks=mb,
+                                             precision="default"),
+                lambda: mk.mega_factorize_plain(pool0.clone(), stream,
+                                                precision="default"),
+                torch.float32, pool0)
+            dist[tag] = rel_err(got, ieee, pool0)[1]
+    return out, dist
+
+
+def tf32_rounding_check() -> dict:
+    """The TF32 body's rounding of its operands (``cvt.rna``) bit for bit
+    against ``hopper_update.round_tf32`` and the plain version: K3 and a
+    UPD run of K4 at 'default' on ``rounding_tasks`` (ties of both signs,
+    remainders one off a tie, a carry into the exponent, random normal
+    values; one exact product a cell), nb 48 and 128; at 'highest' the
+    same tables must give -x itself."""
+    from spllt_tpu_torch.numeric import hopper_update as hu
+    from spllt_tpu_torch.numeric import megakernel as mk
+
+    out = {}
+    for nb in (48, 128):
+        tasks, pool_np, x = hu.rounding_tasks(nb, 16, SEED + nb)
+        rows_ = pool_np.shape[0]
+        xt = torch.as_tensor(x)
+        want = {"default": -hu.round_tf32(xt), "highest": -xt}
+        t = hu.tasks_to_device(tasks, nb, rows_, "cuda")
+        run = (mk.KIND_UPD, {"wr": tasks["lor"], "wc": tasks["loc"],
+                             "dst": tasks["dst"].astype(np.int64) * nb,
+                             "aux": tasks["blkn"], "srcn": tasks["srcn"]},
+               tasks["relr"], tasks["relc"])
+        stream = with_plain_maps(mk.stream_to_device(
+            mk.assemble_stream([run], nb, rows_), "cuda"))
+        pool = torch.as_tensor(pool_np, device="cuda")
+        for p, w in want.items():
+            w = w[:, None].expand(-1, nb)
+            k3 = hu.apply_updates(pool.clone(), t, p)[:len(x)].cpu()
+            k4 = mk.mega_factorize(pool.clone(), stream,
+                                   precision=p)[:len(x)].cpu()
+            plain = hu.apply_updates_plain(pool.clone(), t, p)[:len(x)].cpu()
+            for nm, got in (("k3", k3), ("k4_upd", k4), ("plain", plain)):
+                same = torch.equal(got, w)
+                require(same, f"{nm} at {p!r}, nb {nb}: the rounding of the "
+                              f"operands is not round_tf32's bit for bit "
+                              f"({int((got != w).sum())} cells differ)")
+            out[f"nb{nb}_{p}"] = dict(values=len(x), bit_for_bit=True,
+                                      changed_by_rounding=int(
+                                          (want["default"] != -xt).sum()))
+    return out
+
+
+def tc_row(name, src_key, replaces, o, launches, per, shape):
+    """A ``kernels`` row of the TF32 body from the sums ``o`` of
+    :func:`upd_run_checks` or :func:`k3_level_checks`."""
+    from spllt_tpu_torch.numeric._build import KERNEL_SOURCES
+
+    return dict(
+        name=name, route="cuda",
+        source=f"spllt_tpu_torch/csrc/{KERNEL_SOURCES[src_key]}",
+        replaces=replaces, launches=launches, max_abs_err=o["max_abs"],
+        rel_err=o["rel"], tol_rel=TC_TOL, ms=o["ms"], plain_ms=o["plain_ms"],
+        bound_ms=o["bound_ms"],
+        bound_by=("operations" if 2 * o["bound_by_ops"] > o["count"]
+                  else "bytes"),
+        library_ms=None, device_ms=o["device_ms"],
+        ieee_device_ms=o["ieee_device_ms"],
+        distance_from_ieee_rel=o["ieee_rel"], variant="tf32",
+        bytes=o["bytes"], flops=o["ops"], per=per, shape=shape)
+
+
+def precision_phase(card: str, large: bool) -> list:
+    """The reduced-precision operating points end to end and their kernels
+    (``--precision-only``; also part of the full run):
+
+    * through the public API, poisson3d(64) (unless not ``large``) on
+      'mega' and poisson3d(32) on 'scan' and 'mega', each at 'default' with
+      refine=6 and at 'high' with refine=2 (bench.py's pairs): the update
+      body's variant of the precision must be the one whose launch counter
+      moved (TF32 at 'default', IEEE at 'high'), the refined backward
+      error ≤ 1e-13; ``factor_ms``, ``solve_fwd_bwd_ms``,
+      ``refined_solve_wall_ms``, the refinement steps, and the factor's
+      distance from the IEEE factor of the same stream ('mega'; at 'high'
+      it must be that factor bit for bit);
+    * the level path's factor_ms and device time at the three precisions
+      side by side (:func:`scan_precision_share`, 32³);
+    * a negative pivot raises NotPositiveDefiniteError at 'default' on
+      both schedules (32³);
+    * every UPD run of the 32³ and 64³ streams (:func:`upd_run_checks`)
+      and K3 at every level of 32³ (and 64³, :func:`k3_level_checks`) in
+      TF32 against the plain version of the variant, with their distance
+      from IEEE and their times beside the IEEE body's on the same inputs
+      (the UPD runs: all and narrow, and the whole stream's device time at
+      each variant); the edge tables (:func:`tc_edge_checks`); the
+      rounding bit for bit (:func:`tf32_rounding_check`).
+    Returns the ``kernels`` rows of K3 and K4's UPD runs in TF32."""
+    import spllt_tpu_torch as st
+    from spllt_tpu_torch.numeric.assemble import assemble_torch
+    from spllt_tpu_torch.numeric.factor_scan import ScanFactorExecutor
+    from spllt_tpu_torch.numeric.megakernel import mega_factorize
+
+    recs, upd, k3, fplan64 = {}, {}, {}, None
+    for m in (32, 64) if large else (32,):
+        a = st.poisson3d(m)
+        t0 = time.perf_counter()
+        symb = st.analyse(a, main_options(m, "mega"))
+        analyse_s = time.perf_counter() - t0
+        b = np.random.default_rng(SEED).standard_normal((a.n, 4))
+        for schedule in ("scan", "mega") if m == 32 else ("mega",):
+            kept = None
+            for precision, refine in TC_RUNS:
+                rec, num, fex, sex = precision_run(
+                    a, symb, m, schedule, precision, refine, card, b)
+                rec["host_analyse_s"] = analyse_s
+                if m == 32 and precision == "default":
+                    rec["negative_pivot_raises"] = negative_pivot_raises(
+                        a, symb, main_options(m, schedule,
+                                              precision=precision,
+                                              refine=refine))
+                if schedule == "mega":
+                    pool0 = assemble_torch(num.plan, num.values_perm,
+                                           torch.float32, num.pool.device)
+                    ieee = pool0.clone()
+                    mega_factorize(ieee.view(-1, fex.nb), fex.stream)
+                    mabs, rel = rel_err(num.pool, ieee)
+                    rec["factor_vs_ieee"] = dict(max_abs=mabs, rel=rel)
+                    if rec["variant"] == "ieee":
+                        require(torch.equal(num.pool, ieee),
+                                f"poisson3d({m}) mega at {precision!r}: the "
+                                "factor is not the IEEE factor bit for bit")
+                    del ieee
+                    if kept is None:
+                        kept = (fex, pool0)
+                    else:
+                        del pool0
+                    if m == 64:
+                        fplan64 = num.fplan
+                elif kept is None:
+                    kept = (fex, None)
+                emit("precision_path", **rec)
+                recs[(m, schedule, precision)] = rec
+                del num, sex
+            fex, pool0 = kept
+            if schedule == "mega":
+                # the 'default' and 'high' executors hold the same stream
+                upd[m] = upd_run_checks(fex, pool0)
+                emit("precision_stream_runs", card=card,
+                     matrix=f"poisson3d({m})", tol_rel=TC_TOL, **upd[m])
+            else:
+                k3[m] = k3_level_checks(fex)
+                emit("precision_k3_levels", card=card,
+                     matrix=f"poisson3d({m})", tol_rel=TC_TOL, **k3[m])
+            del kept, fex, pool0
+            torch.cuda.empty_cache()
+            if schedule == "scan":
+                emit("scan_precision_share",
+                     **scan_precision_share(a, symb, m, b, card))
+        del symb
+    if fplan64 is not None:
+        # K3 on the 64³ levels too (the level executor of the 64³ plan)
+        fex = ScanFactorExecutor(fplan64, torch.float32, "default", "cuda")
+        k3[64] = k3_level_checks(fex)
+        emit("precision_k3_levels", card=card, matrix="poisson3d(64)",
+             tol_rel=TC_TOL, **k3[64])
+        del fex
+        torch.cuda.empty_cache()
+    edges, dist = tc_edge_checks()
+    emit("precision_edge_cases", card=card, cases=len(edges),
+         tol_rel=TC_TOL, worst_rel=max(e["rel"] for e in edges.values()),
+         distance_from_ieee_rel=[min(dist.values()), max(dist.values())],
+         errors=edges, distances=dist)
+    emit("tf32_rounding", card=card, **tf32_rounding_check())
+
+    big = 64 if large else 32
+    o = dict(k3[32], count=k3[32]["levels"])
+    row = tc_row("update_tf32", "update",
+                 "spllt_tpu/numeric/pallas_update.py:312", o,
+                 recs[(32, "scan", "default")]["launches"]["update_tf32"],
+                 "factorization", "the poisson3d(32) level path's "
+                 f"{o['levels']} update launches")
+    if 64 in k3:
+        row["large"] = dict(matrix="poisson3d(64)", **{
+            k: k3[64][k] for k in ("ms", "device_ms", "ieee_device_ms",
+                                   "plain_ms", "bound_ms", "max_abs", "rel",
+                                   "ieee_rel", "levels")})
+    rows = [row]
+    o = dict(upd[big]["tf32"], count=upd[big]["tf32"]["runs"],
+             ieee_device_ms=upd[big]["ieee"]["device_ms"])
+    o["max_abs"] = max(upd[m]["tf32"]["max_abs"] for m in upd)
+    o["rel"] = max(upd[m]["tf32"]["rel"] for m in upd)
+    o["ieee_rel"] = max(upd[m]["tf32"]["ieee_rel"] for m in upd)
+    row = tc_row("mega_factor_tf32", "mega_factor",
+                 "spllt_tpu/numeric/megakernel.py:637", o,
+                 recs[(big, "mega", "default")]["launches"][
+                     "mega_factor_tf32"], "factorization (UPD runs)",
+                 f"the poisson3d({big}) stream's {o['runs']} UPD runs")
+    row.update(ieee_ms=upd[big]["ieee"]["ms"],
+               upd_launches_per_call=o["runs"],
+               k4_device_ms=o["k4_device_ms"],
+               k4_ieee_device_ms=upd[big]["ieee"]["k4_device_ms"])
+    rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -2907,6 +3604,11 @@ def main() -> int:
                          "of the tree unpacked at PARENT and of this one, "
                          "each in its own process, and the verdict, as one "
                          "line")
+    ap.add_argument("--precision-only", action="store_true",
+                    help="only the reduced-precision operating points "
+                         "('default' and 'high': the update body on the "
+                         "tensor cores) end to end and their kernels "
+                         "against their plain versions")
     ap.add_argument("--profile", metavar="FILE",
                     help="also write a torch.profiler kernel-time table of "
                          "one factorization and one solve sweep to FILE")
@@ -2945,6 +3647,11 @@ def main() -> int:
         return finish(t_start)
     if args.forest_only:
         emit("forest_launches", **forest_phase(card, not args.no_large))
+        return finish(t_start)
+    if args.precision_only:
+        print(json.dumps({"kernels": precision_phase(card,
+                                                     not args.no_large)}),
+              flush=True)
         return finish(t_start)
 
     # level path (schedule='scan') and its four kernels
@@ -3048,6 +3755,9 @@ def main() -> int:
     kernels += entry_phases(card, not args.no_large)
     # the multi-device paths: each kernel's launches per forest run
     forest = forest_phase(card, not args.no_large)
+    # the reduced-precision operating points: K3 and K4's UPD runs on the
+    # tensor cores
+    kernels += precision_phase(card, not args.no_large)
     for row in kernels:
         if row["name"] in forest:
             row["forest_launches"] = forest[row["name"]]

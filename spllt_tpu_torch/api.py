@@ -420,8 +420,7 @@ def _solve_executor(num: NumericFactor, nrhs: int):
     ex = num._solve_execs.get(key)
     if ex is not None:
         return ex
-    kw = dict(dtype=num.pool.dtype, matmul_precision=num.options.precision,
-              device=num.pool.device)
+    kw = dict(dtype=num.pool.dtype, device=num.pool.device)
     if num.options.schedule == "mega":
         from .numeric.solve_mega import MegaSolveExecutor
 

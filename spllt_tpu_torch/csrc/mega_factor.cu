@@ -29,6 +29,9 @@
 //          live rows and columns and the destination's live cells read and
 //          written once - deterministic, no atomics; two blocks an SM, one
 //          for a run of long chains of near-dense tasks (its dense flag);
+//          float pools also in one TF32 pass on the tensor cores
+//          (spllt_mega_factor_f32_tf32: the TPU kernel's DEFAULT product;
+//          POTRF and TRSM stay IEEE);
 //   POTRF  one cooperative launch of as many blocks as fit the card loops
 //   TRSM   over the part's runs with a grid barrier between two runs, the
 //          blocks taking a run's work items from a counter (whichever
@@ -168,7 +171,8 @@ struct UpdTables {
 // left out.  A UPD part launches each of its runs on its own: run r's
 // segments are seg_ptr[run_seg[r] .. run_seg[r + 1]] (run_seg and
 // run_dense are host arrays).  A POTRF/TRSM part is one cooperative launch.
-template <typename T>
+// P: the update body's product (update_compact.cuh).
+template <typename T, int P>
 int launch(T* pool, FacStream s, const UpdTables& u, int nruns, int nb,
            const int* parts, const int* part_fac, int nparts,
            const int* run_seg, const int* run_dense, int max_blocks,
@@ -182,10 +186,10 @@ int launch(T* pool, FacStream s, const UpdTables& u, int nruns, int nb,
     int e = 0;
     if (!part_fac[i]) {
       for (int r = r0; r < r1 && e == 0; ++r)
-        e = update_launch<T>(pool, u.seg_ptr + run_seg[r], u.dst, u.wr, u.wc,
-                             u.srcn, u.eptr, u.enr, u.ent,
-                             run_seg[r + 1] - run_seg[r] - 1, nb, 1,
-                             run_dense[r], stream);
+        e = update_launch<T, P>(pool, u.seg_ptr + run_seg[r], u.dst, u.wr,
+                                u.wc, u.srcn, u.eptr, u.enr, u.ent,
+                                run_seg[r + 1] - run_seg[r] - 1, nb, 1,
+                                run_dense[r], stream);
     } else {
       void* args[] = {&pool, &s, &nb, &rows, &r0, &r1};
       int grid = 0;
@@ -209,22 +213,27 @@ int launch(T* pool, FacStream s, const UpdTables& u, int nruns, int nb,
       const int *ent, int *counters, int nruns, int nb, const int *parts,    \
       const int *part_fac, int nparts, const int *run_seg,                   \
       const int *run_dense, int max_blocks, int *grid_out, void *stream
-#define SPLLT_MEGA_FACTOR_CALL(T)                                            \
-  launch<T>((T*)pool, FacStream{run_ptr, run_kind, run_split, wr, dst, aux,  \
-                                counters},                                   \
-            UpdTables{seg_ptr, wr, wc, dst, srcn, eptr, enr, ent}, nruns,    \
-            nb, parts, part_fac, nparts, run_seg, run_dense, max_blocks,     \
-            grid_out, stream)
+#define SPLLT_MEGA_FACTOR_CALL(T, P)                                         \
+  launch<T, P>((T*)pool,                                                     \
+               FacStream{run_ptr, run_kind, run_split, wr, dst, aux,         \
+                         counters},                                          \
+               UpdTables{seg_ptr, wr, wc, dst, srcn, eptr, enr, ent}, nruns, \
+               nb, parts, part_fac, nparts, run_seg, run_dense, max_blocks,  \
+               grid_out, stream)
 
 // Device tables: run_ptr .. ent; counters: nruns ints, zero.  Host arrays:
 // parts / part_fac (nparts + 1 / nparts ints, see launch), run_seg
 // (nruns + 1) and run_dense (nruns).  max_blocks > 0 caps the grid of the
 // cooperative POTRF/TRSM launches (for tests of their item loops); grid_out
 // receives the most blocks one of them ran.  A UPD launch runs one block
-// per segment whatever max_blocks says.
+// per segment whatever max_blocks says.  The _tf32 entry point runs the UPD
+// runs' products on the tensor cores.
 extern "C" int spllt_mega_factor_f32(SPLLT_MEGA_FACTOR_ARGS) {
-  return SPLLT_MEGA_FACTOR_CALL(float);
+  return SPLLT_MEGA_FACTOR_CALL(float, spllt::kIeee);
 }
 extern "C" int spllt_mega_factor_f64(SPLLT_MEGA_FACTOR_ARGS) {
-  return SPLLT_MEGA_FACTOR_CALL(double);
+  return SPLLT_MEGA_FACTOR_CALL(double, spllt::kIeee);
+}
+extern "C" int spllt_mega_factor_f32_tf32(SPLLT_MEGA_FACTOR_ARGS) {
+  return SPLLT_MEGA_FACTOR_CALL(float, spllt::kTf32);
 }

@@ -42,6 +42,22 @@
 //     subtracts them from the destination tile in place at the live cells
 //     the entries name (each cell of a unit belongs to one thread), while
 //     the next unit's stages are in flight.
+// The product comes in two variants (template parameter P): kIeee, the
+// float or double FMA product above; for float pools also kTf32, the
+// counterpart of the TPU kernel's one-pass DEFAULT product
+// (spllt_tpu/numeric/megakernel.py _kernel), on the tensor cores with
+// mma.sync.m16n8k8.tf32: the 8 warps share the unit's 16 x 16 tiles of
+// live rows and columns (tile w + 8 q to warp w, q < NV), each a 16 x 8
+// mma pair per 8 contraction columns, the operands rounded to TF32 with
+// cvt.rna where the fragments are loaded from the stages, each step's
+// products summed from zero by the tensor core and added to the sums in
+// float.  (The TPU's three-pass HIGH has no variant here: the IEEE float
+// product is as accurate as TF32x3 and no slower on the H100.)  The
+// stages, the ring, the chains and the entries are the same; the fragments
+// of the stage rows (stride LD = 20 floats) reach 32 distinct banks.  Each
+// live cell is still owned by one thread (rows g, g + 8, columns 2 t,
+// 2 t + 1 of each 16 x 8 tile).  The arithmetic covers the live rows and
+// columns rounded up to 16 and srcn rounded up to 8.
 // Two blocks share an SM, so that one block's latency is hidden by the
 // other's work; a launch of long chains of near-dense tasks (the host's
 // dense flag) runs one block an SM, where the float product's 8 x 8 patch
@@ -65,6 +81,10 @@ constexpr int kStages = 3;      // stages in flight
 constexpr int kEntBufs = 3;     // entry buffers: a unit's task, the next
                                 // one's (in flight) and the one before
                                 // (its sums may still be written out)
+
+// the product's variant: IEEE arithmetic of T; one TF32 tensor-core pass
+// (float only)
+constexpr int kIeee = 0, kTf32 = 1;
 
 template <typename T>
 struct UpdCfg {
@@ -107,6 +127,25 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as the float bit pattern with the low 13 bits clear
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// d += a b, one m16n8k8 TF32 product of a warp (float sums)
+__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2,
+                                         float& d3, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // What every unit of a block reads.  A unit is the sub-tile (rs, cs) of
@@ -230,18 +269,119 @@ __device__ __forceinline__ void prologue(const Ctx<T>& c, Unit u,
   }
 }
 
+// The B fragments of column tile v (16 compact columns: two 16 x 8 mma
+// tiles j) at contraction columns k0 + t and k0 + t + 4 of a stage, rounded
+// to TF32.
+__device__ __forceinline__ void tc_load_b(const float* bs, int v, int k0,
+                                          int g, int t,
+                                          unsigned (&bh)[2][2]) {
+  constexpr int LD = UpdCfg<float>::LD;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float* b = bs + (16 * v + 8 * j + g) * LD + k0 + t;
+    bh[j][0] = tf32_rna(b[0]);
+    bh[j][1] = tf32_rna(b[4]);
+  }
+}
+
+// One stage of the tensor-core product: steps of 8 contraction columns.
+// Warp w owns the unit's 16 x 16 tiles w + 8 q (q < NV), tile (i, v) =
+// (tile / NV, tile % NV) of its rows and columns, live when i < nu; its
+// sums are acc[4 j + r][q] (r the accumulator fragment's register of mma
+// tile j).  Where NV divides 8 a warp's tiles share one column tile, and
+// its B fragments are loaded once a step.
+template <int NV, bool FULL>
+__device__ __forceinline__ void tc_chunk(float (&acc)[8][NV],
+                                         const float* as, const float* bs,
+                                         int steps, int nu, int tid) {
+  constexpr int LD = UpdCfg<float>::LD;
+  constexpr bool kFixedV = 8 % NV == 0;
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  for (int st = 0; st < steps; ++st) {
+    const int k0 = 8 * st;
+    unsigned bh[2][2];
+    if constexpr (kFixedV) tc_load_b(bs, w % NV, k0, g, t, bh);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int tile = w + 8 * q;
+      if (FULL || tile < nu * NV) {
+        if constexpr (!kFixedV) tc_load_b(bs, tile % NV, k0, g, t, bh);
+        const float* a = as + (16 * (tile / NV) + g) * LD + k0 + t;
+        const unsigned ah[4] = {tf32_rna(a[0]), tf32_rna(a[8 * LD]),
+                                tf32_rna(a[4]), tf32_rna(a[8 * LD + 4])};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // the step's products from a zero accumulator, then added to the
+          // sums in float: the tensor core truncates what it adds, and
+          // summed over a chain of many steps that bias would grow with
+          // the number of steps
+          float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+          mma_tf32(p0, p1, p2, p3, ah, bh[j]);
+          acc[4 * j][q] += p0;
+          acc[4 * j + 1][q] += p1;
+          acc[4 * j + 2][q] += p2;
+          acc[4 * j + 3][q] += p3;
+        }
+      }
+    }
+  }
+}
+
+// The tensor-core sums subtracted from the live destination cells of unit
+// u (read all, then write all): the thread's rows g, g + 8 and columns
+// 2 t, 2 t + 1 of each mma tile of its live tiles.
+template <int NV, bool FULL>
+__device__ __forceinline__ void tc_cells(float (&acc)[8][NV],
+                                         const Ctx<float>& c, Unit u,
+                                         const Shape& s, int nu, int tid) {
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const int* e = entries(c, u.t);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int tile = w + 8 * q;
+      if (FULL || tile < nu * NV) {
+        const int i = tile / NV, v = tile % NV;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * i + g + 8 * h;
+          if (r < s.m) {
+            float* dr = c.d + (size_t)(e[u.rs + r] >> 16) * c.nb;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                const int cc = 16 * v + 8 * j + 2 * t + x;
+                if (cc < s.n) {
+                  float& a = acc[4 * j + 2 * h + x][q];
+                  const int col = e[s.nr + u.cs + cc] >> 16;
+                  if (pass == 0)
+                    a = dr[col] - a;
+                  else
+                    dr[col] = a;
+                }
+              }
+          }
+        }
+      }
+    }
+  }
+}
+
 // Units from u on, as long as each task's live rows and columns are the
 // next one's (a chain: the sums stay in registers), n <= 16 * NV (and all
 // TM row groups live when FULL).  u's chunks were issued by prologue; the
 // next unit's are issued during u's last chunk, so that the pipeline runs
 // on from unit to unit, and a chain's sums are subtracted from the live
 // destination cells while those loads are in flight.  Returns the next
-// unit (its chunks issued).
-template <typename T, int NV, bool FULL>
+// unit (its chunks issued).  P: the product's variant (see the top).
+template <typename T, int NV, bool FULL, int P>
 __device__ __noinline__ Unit run_units(Ctx<T> c, Unit u, int tid) {
   using C = UpdCfg<T>;
   constexpr int TM = C::TM, LD = C::LD;
   constexpr size_t SE = stage_elems<T>();
+  static_assert(P == kIeee || sizeof(T) == 4, "TF32 takes float pools");
   const int tx = tid & 15, ty = tid >> 4;
 
   T acc[TM][NV];
@@ -271,25 +411,32 @@ __device__ __noinline__ Unit run_units(Ctx<T> c, Unit u, int tid) {
         cp_commit();
       }
       const size_t off = ((u.g + ch) % kStages) * SE;
-      const T* a0 = c.as + off + ty * LD;
-      const T* b0 = c.bs + off + tx * LD;
-      const int steps = (min(kKC, s.kn - ch * kKC) + 3) / 4;
-      for (int st = 0; st < steps; ++st) {
-        Vec4<T> b[NV];
+      if constexpr (P == kIeee) {
+        const T* a0 = c.as + off + ty * LD;
+        const T* b0 = c.bs + off + tx * LD;
+        const int steps = (min(kKC, s.kn - ch * kKC) + 3) / 4;
+        for (int st = 0; st < steps; ++st) {
+          Vec4<T> b[NV];
 #pragma unroll
-        for (int v = 0; v < NV; ++v)
-          b[v] = *reinterpret_cast<const Vec4<T>*>(b0 + 16 * v * LD + 4 * st);
+          for (int v = 0; v < NV; ++v)
+            b[v] = *reinterpret_cast<const Vec4<T>*>(b0 + 16 * v * LD +
+                                                     4 * st);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          if (FULL || i < nu) {
-            const Vec4<T> a =
-                *reinterpret_cast<const Vec4<T>*>(a0 + 16 * i * LD + 4 * st);
+          for (int i = 0; i < TM; ++i) {
+            if (FULL || i < nu) {
+              const Vec4<T> a =
+                  *reinterpret_cast<const Vec4<T>*>(a0 + 16 * i * LD +
+                                                    4 * st);
 #pragma unroll
-            for (int v = 0; v < NV; ++v)
+              for (int v = 0; v < NV; ++v)
 #pragma unroll
-              for (int x = 0; x < 4; ++x) acc[i][v] += a.v[x] * b[v].v[x];
+                for (int x = 0; x < 4; ++x) acc[i][v] += a.v[x] * b[v].v[x];
+            }
           }
         }
+      } else {
+        tc_chunk<NV, FULL>(acc, c.as + off, c.bs + off,
+                           (min(kKC, s.kn - ch * kKC) + 7) / 8, nu, tid);
       }
     }
     any |= nch > 0;
@@ -303,7 +450,9 @@ __device__ __noinline__ Unit run_units(Ctx<T> c, Unit u, int tid) {
       u = nx;
       continue;
     }
-    if (any) {
+    if constexpr (P != kIeee) {
+      if (any) tc_cells<NV, FULL>(acc, c, u, s, nu, tid);
+    } else if (any) {
       // the live cells: read all, then write all
       const int* e = entries(c, u.t);
       int col[NV];
@@ -335,23 +484,23 @@ __device__ __noinline__ Unit run_units(Ctx<T> c, Unit u, int tid) {
   }
 }
 
-template <typename T, int NV>
+template <typename T, int NV, int P>
 __device__ __forceinline__ Unit run_nv(int nv, int nu, const Ctx<T>& c,
                                        Unit u, int tid) {
   if constexpr (NV == UpdCfg<T>::TM) {
     if (nv == NV && nu == UpdCfg<T>::TM)
-      return run_units<T, NV, true>(c, u, tid);
+      return run_units<T, NV, true, P>(c, u, tid);
   }
   if constexpr (NV > 1) {
-    if (nv < NV) return run_nv<T, NV - 1>(nv, nu, c, u, tid);
+    if (nv < NV) return run_nv<T, NV - 1, P>(nv, nu, c, u, tid);
   }
-  return run_units<T, NV, false>(c, u, tid);
+  return run_units<T, NV, false, P>(c, u, tid);
 }
 
 // MINB blocks an SM: 2 in general (one block's latency hidden by the
 // other's work), 1 for a level of long chains of near-dense tasks, where
 // the float product's 8 x 8 patch then runs in registers without spills.
-template <typename T, int MINB>
+template <typename T, int MINB, int P = kIeee>
 __global__ void __launch_bounds__(kNT, MINB)
     update_kernel(T* pool, const int* __restrict__ seg_ptr,
                   const int* __restrict__ dst, const int* __restrict__ lor,
@@ -390,21 +539,21 @@ __global__ void __launch_bounds__(kNT, MINB)
   prologue(c, u, shape(c, u), tid);
   while (u.t < t1) {
     const Shape s = shape(c, u);
-    u = run_nv<T, C::TM>((s.n + 15) / 16, (s.m + 15) / 16, c, u, tid);
+    u = run_nv<T, C::TM, P>((s.n + 15) / 16, (s.m + 15) / 16, c, u, tid);
   }
 }
 
-template <typename T, int MINB>
+template <typename T, int MINB, int P>
 int update_launch_as(void* pool, const int* seg_ptr, const int* dst,
                      const int* lor, const int* loc, const int* srcn,
                      const int* eptr, const int* enr, const int* ent,
                      int nseg, int nb, int drows, size_t smem,
                      void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      update_kernel<T, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      update_kernel<T, MINB, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  update_kernel<T, MINB><<<nseg, kNT, smem, (cudaStream_t)stream>>>(
+  update_kernel<T, MINB, P><<<nseg, kNT, smem, (cudaStream_t)stream>>>(
       (T*)pool, seg_ptr, dst, lor, loc, srcn, eptr, enr, ent, nb, drows);
   return (int)cudaGetLastError();
 }
@@ -413,7 +562,8 @@ int update_launch_as(void* pool, const int* seg_ptr, const int* dst,
 // nseg] (task offsets into the tables), MINB 1 where the tables' dense flag
 // is set, else 2.  The destination of task t starts at row dst[t] * drows of
 // the pool: drows = nb where dst names a tile, 1 where it is a row base.
-template <typename T>
+// P: the product's variant (kTf32 for float pools only).
+template <typename T, int P = kIeee>
 int update_launch(void* pool, const int* seg_ptr, const int* dst,
                   const int* lor, const int* loc, const int* srcn,
                   const int* eptr, const int* enr, const int* ent, int nseg,
@@ -422,10 +572,11 @@ int update_launch(void* pool, const int* seg_ptr, const int* dst,
   const size_t smem = update_smem<T>(nb);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (dense)
-    return update_launch_as<T, 1>(pool, seg_ptr, dst, lor, loc, srcn, eptr,
-                                  enr, ent, nseg, nb, drows, smem, stream);
-  return update_launch_as<T, 2>(pool, seg_ptr, dst, lor, loc, srcn, eptr,
-                                enr, ent, nseg, nb, drows, smem, stream);
+    return update_launch_as<T, 1, P>(pool, seg_ptr, dst, lor, loc, srcn,
+                                     eptr, enr, ent, nseg, nb, drows, smem,
+                                     stream);
+  return update_launch_as<T, 2, P>(pool, seg_ptr, dst, lor, loc, srcn, eptr,
+                                   enr, ent, nseg, nb, drows, smem, stream);
 }
 
 }  // namespace spllt

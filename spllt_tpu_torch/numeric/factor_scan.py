@@ -11,9 +11,10 @@ order; nothing synchronises until the caller reads the flag.
 Per level ``1..nlevels``:
 
   updbt : between-node update micro-tasks → fused update kernel
-          (:mod:`.hopper_update`)
+          (:mod:`.hopper_update`, its product at ``Options.precision``)
   syrk  : within-node updates → ``torch.bmm`` + ``index_add_`` (the JAX
-          package computes these outside any hand-written kernel as well)
+          package computes these outside any hand-written kernel as well;
+          TF32 at 'default', :func:`pinned_precision`)
   potrf : diagonal tiles → potrf kernel (:mod:`.hopper_potrf`)
   trsm  : off-diagonal tiles → trsm kernel (:mod:`.hopper_trsm`)
 
@@ -45,23 +46,25 @@ def canonical_device(device) -> torch.device:
 
 @contextlib.contextmanager
 def pinned_precision(precision: str):
-    """Run the block's float32 ``torch.bmm`` products with the precision
-    ``Options.precision`` asks for, whatever the process-wide cuBLAS
+    """Run the block's float32 cuBLAS products (``torch.bmm``) with the
+    precision ``Options.precision`` asks for, whatever the process-wide
     setting (``torch.backends.cuda.matmul.allow_tf32``, which
     ``torch.set_float32_matmul_precision`` also sets, or its newer form
     ``torch.backends.cuda.matmul.fp32_precision``), and restore that setting
-    afterwards through the same interface.  ``'highest'`` is IEEE float32.
-    ``'high'`` and ``'default'`` are IEEE float32 as well until tensor-core
-    bodies port them (they are then more accurate than the reference's,
-    not less)."""
+    afterwards through the same interface.  ``'default'`` is TF32 (the
+    reference leaves these plain products to XLA at DEFAULT); ``'highest'``
+    and ``'high'`` are IEEE float32.  float64 products are IEEE whatever the setting, and
+    products on the CPU ignore it."""
     if precision not in ("highest", "high", "default"):
         raise ValueError(f"unknown precision {precision!r}")
     mm = torch.backends.cuda.matmul
+    tf32 = precision == "default"
     try:
-        prev, name, ieee = mm.allow_tf32, "allow_tf32", False
+        prev, name, want = mm.allow_tf32, "allow_tf32", tf32
     except RuntimeError:      # the process set the newer interface
-        prev, name, ieee = mm.fp32_precision, "fp32_precision", "ieee"
-    setattr(mm, name, ieee)
+        prev, name = mm.fp32_precision, "fp32_precision"
+        want = "tf32" if tf32 else "ieee"
+    setattr(mm, name, want)
     try:
         yield
     finally:
@@ -73,9 +76,9 @@ class ScanFactorExecutor:
 
     The tables do not depend on the matrix values, so one executor serves
     every refactorization of the same pattern.  ``matmul_precision`` is
-    ``Options.precision``: the products run under
-    :func:`pinned_precision` (IEEE in ``dtype`` for all three values for
-    now).
+    ``Options.precision``: the update kernel's product
+    (``hopper_update.body_variant``) and the syrk products'
+    (:func:`pinned_precision`); potrf and trsm are IEEE at every precision.
     """
 
     def __init__(self, fp, dtype: torch.dtype = torch.float32,
@@ -143,7 +146,7 @@ class ScanFactorExecutor:
     def _levels(self, pool, poolf):
         for lv in self.levels:
             if "upd" in lv:
-                apply_updates(poolf, lv["upd"])
+                apply_updates(poolf, lv["upd"], self.precision)
             if "syrk" in lv:
                 si, sj, dst = lv["syrk"]
                 u = torch.bmm(pool[si], pool[sj].transpose(1, 2))

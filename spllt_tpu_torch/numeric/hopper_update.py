@@ -35,6 +35,16 @@ of the tile).  Deterministic, no atomics: a segment's tasks are applied in
 their order by one block.  The JAX-format maps ``relr``/``relc`` stay in
 the tables, as int16, for the plain version and the checks.
 
+Precision.  ``Options.precision`` picks the body's product for float32
+pools (:func:`body_variant`): ``'default'`` one TF32 pass on the tensor
+cores (``mma.sync`` m16n8k8; the TPU kernel's DEFAULT product), its
+operands rounded to TF32 as :func:`round_tf32` rounds them; ``'highest'``
+and ``'high'`` the IEEE float32 product (the TPU's three-pass HIGH is no
+more accurate than float32, and on the H100 a TF32×3 body was no faster
+than the IEEE one).  The tensor-core body's arithmetic covers ``srcn`` rounded
+up to ``EXEC_SLAB_TC``.  float64 pools multiply in IEEE float64 at every
+precision.
+
 This module also holds the port's own copy of ``build_micro_tasks`` (pure
 NumPy), ``tasks_to_device``, which checks the tables and computes the
 segment offsets and the packed entries, and ``edge_case_tasks``,
@@ -54,13 +64,17 @@ from ._build import check_launch, load, require_cuda_tensors
 __all__ = ["build_micro_tasks", "tasks_to_device", "pack_live_entries",
            "edge_case_tasks", "compact_edge_tasks", "apply_updates",
            "apply_updates_plain", "EXEC_ROWS", "EXEC_COLS", "EXEC_SLAB",
-           "EXEC_COMPACT", "CHAIN", "dense_level", "dense_edge_tasks"]
+           "EXEC_COMPACT", "CHAIN", "dense_level", "dense_edge_tasks",
+           "round_tf32", "body_variant", "VARIANT_TAGS", "EXEC_SLAB_TC",
+           "rounding_tasks"]
 
 # The kernel's arithmetic, per micro-task, covers its live rows and its live
 # columns each rounded up to 16 (a thread's rows and columns are 16 apart)
 # and srcn rounded up to 4 (one 16-byte step of the float product), at
 # every nb: counted over the compact rows and columns (EXEC_COMPACT).
 EXEC_ROWS, EXEC_COLS, EXEC_SLAB, EXEC_COMPACT = 16, 16, 4, True
+# the tensor-core body steps through srcn 8 columns at a time (one k8 mma)
+EXEC_SLAB_TC = 8
 # the flag of a packed table's ``enr`` entry: the next task has the same
 # destination and the same live rows and columns
 CHAIN = 1 << 16
@@ -73,8 +87,13 @@ DENSE_LIVE, DENSE_SEGMENT = 7 / 8, 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_update_{s}": [_P] * 9 + [_I, _I, _I, _P]
-        for s in ("f32", "f64")}
+        for s in ("f32", "f64", "f32_tf32")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# Options.precision -> the update body's product for float32 pools
+_VARIANT = {"highest": "ieee", "high": "ieee", "default": "tf32"}
+# the body's product -> (suffix of its C entry points, the launch counter
+# of its wrappers: apply_updates and megakernel.mega_factorize)
+VARIANT_TAGS = {"ieee": ("", "launches"), "tf32": ("_tf32", "launches_tf32")}
 _TASK_KEYS = ("dst", "lor", "loc", "blkn", "srcn", "relr", "relc")
 # what the kernel reads, in the order of its C arguments
 _KERNEL_KEYS = ("seg_ptr", "dst", "lor", "loc", "srcn", "eptr", "enr", "ent")
@@ -389,9 +408,78 @@ def dense_edge_tasks(nb: int, seed: int):
             "relc": relc.astype(np.int32)}, pool_rows
 
 
-def apply_updates_plain(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
+def rounding_tasks(nb: int, ntiles: int, seed: int):
+    """Update tasks whose result is ``-x`` as the body rounds its operands,
+    for a bit-for-bit check of the rounding on the card.  ``x``: ntiles·nb
+    normal float32 values: ties of both signs (a remainder of exactly
+    0x1000 below the TF32 mantissa), remainders one below and above, a
+    carry into the exponent, then random bit patterns of magnitude
+    2^-60–2^61.  Task t subtracts from the zero tile t the product of
+    source tile ntiles + t, whose column 0 holds ``x[t·nb : (t+1)·nb]``,
+    and source tile 2·ntiles, whose column 0 is 1.0, at srcn 1 (the rest
+    of both is zero): one exact product and sums with zeros, so row i of
+    tile t becomes ``-x[t·nb + i]`` rounded (``-round_tf32`` at 'default')
+    in every column.  Returns (tasks as :func:`build_micro_tasks` returns
+    them, the pool [rows, nb] float32 as NumPy, x)."""
+    rng = np.random.default_rng(seed)
+    bits = [(b | rem) | sign for b in (0x3F800000, 0x40490000, 0x3A124000,
+                                       0x4B7FE000)
+            for rem in (0x0000, 0x0FFF, 0x1000, 0x1001, 0x1FFF, 0x3000)
+            for sign in (0, 0x80000000)]
+    more = ntiles * nb - len(bits)
+    if more < 0:
+        raise ValueError(f"rounding_tasks: ntiles * nb below {len(bits)}")
+    rnd = (rng.integers(0, 2, more, dtype=np.uint64) << np.uint64(31)) \
+        | (rng.integers(127 - 60, 127 + 61, more, dtype=np.uint64)
+           << np.uint64(23)) \
+        | rng.integers(0, 1 << 23, more, dtype=np.uint64)
+    x = np.concatenate([np.array(bits, np.uint32),
+                        rnd.astype(np.uint32)]).view(np.float32)
+    k = ntiles
+    pool = np.zeros(((2 * k + 1) * nb, nb), np.float32)
+    pool[k * nb:2 * k * nb, 0] = x
+    pool[2 * k * nb:, 0] = 1.0
+    ar = np.tile(np.arange(nb, dtype=np.int32), (k, 1))
+    tasks = {"dst": np.arange(k, dtype=np.int32),
+             "lor": ((k + np.arange(k)) * nb).astype(np.int32),
+             "loc": np.full(k, 2 * k * nb, np.int32),
+             "blkn": np.full(k, nb, np.int32), "srcn": np.ones(k, np.int32),
+             "relr": ar, "relc": ar.copy()}
+    return tasks, pool, x
+
+
+def body_variant(dtype: torch.dtype, precision: str) -> str:
+    """The update body's product for a pool of ``dtype`` at
+    ``Options.precision``: 'tf32' for float32 at 'default', else 'ieee'
+    (TF32 is a float32 format, so float64 pools are 'ieee' at every
+    precision)."""
+    if precision not in _VARIANT:
+        raise ValueError(f"unknown precision {precision!r}")
+    return _VARIANT[precision] if dtype == torch.float32 else "ieee"
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: on the int32 view add
+    0x1000 to the magnitude and clear the low 13 bits.  inf and nan are
+    left as they are; a magnitude that rounds past the largest float
+    becomes inf."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"round_tf32 takes float32, not {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def apply_updates_plain(poolf: torch.Tensor, tasks: dict,
+                        precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch version (any device), in place on ``poolf`` [rows, nb]:
-    indexed gathers, one batched product, one ``index_add_``."""
+    indexed gathers, one batched product (of TF32-rounded operands where
+    :func:`body_variant` says 'tf32'), one ``index_add_``."""
+    from .factor_scan import pinned_precision
+
+    variant = body_variant(poolf.dtype, precision)
     nb = poolf.shape[1]
     dst = tasks["dst"].to(torch.int64)
     if dst.numel() == 0:
@@ -406,17 +494,26 @@ def apply_updates_plain(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
     rows_c = tasks["loc"].to(torch.int64)[:, None] + relc.clamp(min=0)
     r = torch.where(vr[..., None] & kmask, poolf[rows_r], zero)  # [K, nb, nb]
     c = torch.where(vc[..., None] & kmask, poolf[rows_c], zero)
-    u = torch.bmm(r, c.transpose(1, 2))
+    if variant == "tf32":
+        r, c = round_tf32(r), round_tf32(c)
+    with pinned_precision("highest"):     # IEEE products on the card too
+        u = torch.bmm(r, c.transpose(1, 2))
     poolf.view(-1, nb, nb).index_add_(0, dst, u, alpha=-1)
     return poolf
 
 
-def apply_updates(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
+def apply_updates(poolf: torch.Tensor, tasks: dict,
+                  precision: str = "highest") -> torch.Tensor:
     """``poolf`` [rows, nb] float32/float64, updated in place and returned;
-    ``tasks`` as :func:`tasks_to_device` returns it, on the same device.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    ``tasks`` as :func:`tasks_to_device` returns it, on the same device;
+    ``precision`` is ``Options.precision`` (:func:`body_variant`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    the variant (no other: a TF32 body that fails raises).  Launches count
+    per variant (:data:`VARIANT_TAGS`): ``launches`` (IEEE),
+    ``launches_tf32``."""
+    variant = body_variant(poolf.dtype, precision)
     if poolf.device.type == "cpu":
-        return apply_updates_plain(poolf, tasks)
+        return apply_updates_plain(poolf, tasks, precision)
     tens = [tasks[nm] for nm in _KERNEL_KEYS]
     require_cuda_tensors("apply_updates", poolf, *tens)
     nb = poolf.shape[1]
@@ -431,14 +528,17 @@ def apply_updates(poolf: torch.Tensor, tasks: dict) -> torch.Tensor:
     nseg = tasks["seg_ptr"].shape[0] - 1
     if k == 0 or nseg <= 0:
         return poolf
-    fn = getattr(load("update", _SIG), "spllt_update_" + _SUFFIX[poolf.dtype])
+    suffix, count = VARIANT_TAGS[variant]
+    fn = getattr(load("update", _SIG),
+                 "spllt_update_" + _SUFFIX[poolf.dtype] + suffix)
     with torch.cuda.device(poolf.device):
         status = fn(poolf.data_ptr(), *(t.data_ptr() for t in tens), nseg,
                     nb, int(tasks["dense"]),
                     torch.cuda.current_stream().cuda_stream)
     check_launch(status, "apply_updates")
-    apply_updates.launches += 1
+    setattr(apply_updates, count, getattr(apply_updates, count) + 1)
     return poolf
 
 
 apply_updates.launches = 0
+apply_updates.launches_tf32 = 0

@@ -60,7 +60,10 @@ the runs; their bodies are K4's own (``csrc/mega_factor_body.cuh``: blocked
 in 16-column panels, one warp's registers for each diagonal block, one
 thread a row below), since near the root most of their runs have fewer
 items than the card has blocks and last as long as one item.  The launch
-boundary orders one part, and one UPD run, before the next.
+boundary orders one part, and one UPD run, before the next.  ``precision``
+(``Options.precision``) picks the UPD runs' product as it picks K3's
+(``hopper_update.body_variant``: float32 pools at 'default' in one TF32
+pass on the tensor cores); the POTRF and TRSM runs stay IEEE.
 """
 
 from __future__ import annotations
@@ -74,8 +77,10 @@ from ._build import check_launch, load, require_cuda_tensors
 from .factor_scan import canonical_device
 from .hopper_potrf import potrf_plain
 from .hopper_trsm import trsm_plain
-from .hopper_update import (apply_updates_plain, build_micro_tasks,
-                            dense_edge_tasks, dense_level, pack_live_entries)
+from .hopper_update import (VARIANT_TAGS, apply_updates_plain,
+                            body_variant, build_micro_tasks,
+                            dense_edge_tasks, dense_level,
+                            pack_live_entries)
 
 __all__ = ["KIND_UPD", "KIND_POTRF", "KIND_TRSM", "TRSM_ROWS", "BLOCKS",
            "build_mega_stream", "trsm_split", "trsm_work_items",
@@ -101,7 +106,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {f"spllt_mega_factor_{s}":
         [_P] * 14 + [_I, _I, _P, _P, _I, _P, _P, _I,
                      ctypes.POINTER(ctypes.c_int), _P]
-        for s in ("f32", "f64")}
+        for s in ("f32", "f64", "f32_tf32")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -386,10 +391,11 @@ def plain_maps(stream: dict, device) -> dict:
             for k in _PLAIN_KEYS}
 
 
-def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
+def mega_factorize_plain(poolf: torch.Tensor, stream: dict,
+                         precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch version (any device), in place on ``poolf`` [rows, nb]:
-    a loop over the runs calling the plain update, potrf and trsm on the
-    tiles the tables name."""
+    a loop over the runs calling the plain update (at ``precision``),
+    potrf and trsm on the tiles the tables name."""
     nb = stream["nb"]
     pool = poolf.view(-1, nb, nb)
     h = stream["host"]
@@ -403,7 +409,7 @@ def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
                 "dst": stream["dst"][sl] // nb, "lor": stream["wr"][sl],
                 "loc": stream["wc"][sl], "blkn": stream["aux"][sl],
                 "srcn": stream["srcn"][sl], "relr": maps["relr"][rel],
-                "relc": maps["relc"][rel]})
+                "relc": maps["relc"][rel]}, precision)
         elif kind == KIND_POTRF:
             blk = (stream["dst"][sl] // nb).to(torch.int64)
             pool[blk] = potrf_plain(pool[blk], stream["aux"][sl])
@@ -415,15 +421,21 @@ def mega_factorize_plain(poolf: torch.Tensor, stream: dict) -> torch.Tensor:
 
 
 def mega_factorize(poolf: torch.Tensor, stream: dict,
-                   max_blocks: int = 0) -> torch.Tensor:
+                   max_blocks: int = 0,
+                   precision: str = "highest") -> torch.Tensor:
     """``poolf`` [rows, nb] float32/float64, factored in place and returned;
     ``stream`` as :func:`stream_to_device` returns it, on the same device.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``max_blocks`` > 0 caps the grid of the POTRF/TRSM launches (tests of
-    their item loops; a UPD launch runs one block per segment); the most
-    blocks one of them ran is left in ``mega_factorize.last_grid``."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    its UPD runs with the product ``precision`` picks
+    (``hopper_update.body_variant``; no other: a TF32 body that fails
+    raises).  Calls count per variant (``hopper_update.VARIANT_TAGS``):
+    ``launches`` (IEEE), ``launches_tf32``.  ``max_blocks`` > 0 caps the
+    grid of the POTRF/TRSM launches (tests of their item loops; a UPD
+    launch runs one block per segment); the most blocks one of them ran is
+    left in ``mega_factorize.last_grid``."""
+    variant = body_variant(poolf.dtype, precision)
     if poolf.device.type == "cpu":
-        return mega_factorize_plain(poolf, stream)
+        return mega_factorize_plain(poolf, stream, precision)
     tens = [stream[k] for k in _DEV_KEYS]
     require_cuda_tensors("mega_factorize", poolf, *tens)
     nb = stream["nb"]
@@ -438,8 +450,9 @@ def mega_factorize(poolf: torch.Tensor, stream: dict,
     nruns = stream["run_kind"].shape[0]
     if nruns == 0:
         return poolf
+    suffix, count = VARIANT_TAGS[variant]
     fn = getattr(load("mega_factor", _SIG),
-                 "spllt_mega_factor_" + _SUFFIX[poolf.dtype])
+                 "spllt_mega_factor_" + _SUFFIX[poolf.dtype] + suffix)
     grid = ctypes.c_int(0)
     # one work-item counter per run, zero at launch
     counters = torch.zeros(nruns, dtype=torch.int32, device=poolf.device)
@@ -454,12 +467,13 @@ def mega_factorize(poolf: torch.Tensor, stream: dict,
                     ctypes.byref(grid),
                     torch.cuda.current_stream().cuda_stream)
     check_launch(status, "mega_factorize")
-    mega_factorize.launches += 1
+    setattr(mega_factorize, count, getattr(mega_factorize, count) + 1)
     mega_factorize.last_grid = grid.value
     return poolf
 
 
 mega_factorize.launches = 0
+mega_factorize.launches_tf32 = 0
 mega_factorize.last_grid = 0
 
 
@@ -469,7 +483,9 @@ class MegaFactorExecutor:
 
     The tables do not depend on the matrix values, so one executor serves
     every refactorization of the same pattern.  float32 and float64 pools
-    are both taken (one kernel template), at any nb."""
+    are both taken (one kernel template), at any nb; ``matmul_precision``
+    (``Options.precision``) picks the UPD runs' product
+    (:func:`mega_factorize`)."""
 
     def __init__(self, fp, dtype: torch.dtype = torch.float32,
                  matmul_precision: str = "highest", device="cuda"):
@@ -502,6 +518,7 @@ class MegaFactorExecutor:
             raise ValueError(
                 f"pool must be contiguous {self.dtype} on {self.device}, "
                 f"got {pool.dtype} on {pool.device}")
-        mega_factorize(pool.view(-1, self.nb), self.stream)
+        mega_factorize(pool.view(-1, self.nb), self.stream,
+                       precision=self.precision)
         notpos = torch.isnan(pool[:, 0, 0].sum())
         return pool, notpos

@@ -348,8 +348,7 @@ class MegaSolveExecutor:
     float64 are both taken (one kernel template), at any nb."""
 
     def __init__(self, symb, plan, nrhs: int,
-                 dtype: torch.dtype = torch.float32,
-                 matmul_precision: str = "highest", device="cuda",
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  smp=None):
         if dtype not in _SUFFIX:
             raise ValueError(f"the solve stream kernel takes float32 or "
@@ -360,7 +359,6 @@ class MegaSolveExecutor:
         self.n = symb.n
         self.nrhs = nrhs
         self.dtype = dtype
-        self.precision = matmul_precision
         self.device = canonical_device(device)
         smp = self.smp
         self.pool_rows = (plan.nblocks + 1) * plan.nb

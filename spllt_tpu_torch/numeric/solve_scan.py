@@ -33,13 +33,12 @@ class ScanSolveExecutor:
     number of right-hand sides."""
 
     def __init__(self, sp, nrhs: int, dtype: torch.dtype = torch.float32,
-                 matmul_precision: str = "highest", device="cuda"):
+                 device="cuda"):
         self.sp = sp
         self.nb = sp.nb
         self.n = sp.n
         self.nrhs = nrhs
         self.dtype = dtype
-        self.precision = matmul_precision
         self.device = canonical_device(device)
         self._fwd_levels = self._prep(True)
         self._bwd_levels = self._prep(False)
@@ -118,9 +117,10 @@ class ScanSolveExecutor:
                      u.reshape(-1, u.shape[-1])[t["out_sel"]], alpha=-1)
 
     def _run(self, pool, x, forward: bool):
-        """One sweep, in place on x [n+1, nrhs]; the products run with
-        the precision ``matmul_precision`` pins (:func:`pinned_precision`)."""
-        with pinned_precision(self.precision):
+        """One sweep, in place on x [n+1, nrhs]; the products run in IEEE
+        arithmetic at every precision, as the solve kernels do
+        (:func:`pinned_precision`)."""
+        with pinned_precision("highest"):
             for lv in (self._fwd_levels if forward else self._bwd_levels):
                 if forward:
                     if "sol" in lv:

@@ -44,8 +44,13 @@ class Options:
     schedule: str = "scan"   # 'scan' | 'unrolled': the level executors (one
     #   Python loop over the plan's levels); 'mega': the stream executors
     #   (the whole factorization, and each solve sweep, as one kernel)
-    precision: str = "highest"  # accepted: 'highest' | 'high' | 'default';
-    #   all three compute in IEEE arithmetic of the pool dtype for now
+    precision: str = "highest"  # 'highest' | 'high' | 'default': at
+    #   'default' the update products of float32 pools (K3, K4's UPD runs,
+    #   the level path's syrk bmm) run in one TF32 pass on the tensor
+    #   cores; everything else is IEEE arithmetic of the pool dtype, 'high'
+    #   included (float32 is as accurate as the TPU's three-pass HIGH, and
+    #   a TF32x3 body was no faster on the H100).  Pair 'default' with
+    #   refine 6 (bench.py's setting)
     dtype: str = "float32"   # pool dtype: 'float32' | 'float64'
     pallas_updates: str = "auto"  # 'auto' | 'on' | 'off': the JAX
     #   package's fused TPU update kernel; no effect here (the update kernel

@@ -314,7 +314,6 @@ class ForestExecutor:
         self.md = md
         self.devices = [canonical_device(d) for d in devices]
         self.dtype = dtype
-        self.precision = matmul_precision
         self.mega = schedule == "mega"
         self.smp = smp
         kw = dict(dtype=dtype, matmul_precision=matmul_precision)
@@ -381,7 +380,7 @@ class ForestExecutor:
         """([per-device solve executors], top solve executor), built at the
         first solve; they serve any number of right-hand sides."""
         if self._solvers is None:
-            kw = dict(dtype=self.dtype, matmul_precision=self.precision)
+            kw = dict(dtype=self.dtype)
             if self.mega:
                 from .forest_mega import device_solve_executors
 

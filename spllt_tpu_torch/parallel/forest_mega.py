@@ -61,7 +61,7 @@ def split_solve_runs(md, smp) -> dict:
     return out
 
 
-def device_solve_executors(md, smp, devices, dtype, matmul_precision):
+def device_solve_executors(md, smp, devices, dtype):
     """([per-device MegaSolveExecutor], top MegaSolveExecutor) on the split
     runs of :func:`split_solve_runs`; each holds its device's streams of
     both directions over the local pool and the global work layout."""
@@ -79,9 +79,8 @@ def device_solve_executors(md, smp, devices, dtype, matmul_precision):
         view = types.SimpleNamespace(P=smp.P, X=smp.X, xp_src=smp.xp_src,
                                      col_to_xp=smp.col_to_xp, fwd_runs=fwd,
                                      bwd_runs=bwd)
-        return MegaSolveExecutor(symb, plan, 0, dtype=dtype,
-                                 matmul_precision=matmul_precision,
-                                 device=dev, smp=view)
+        return MegaSolveExecutor(symb, plan, 0, dtype=dtype, device=dev,
+                                 smp=view)
 
     return ([executor(d, dev) for d, dev in enumerate(devices)],
             executor(-1, devices[0]))

@@ -54,8 +54,7 @@ def solve_rhs_sharded(num, b: np.ndarray, devices=None,
         ex = num._solve_execs.get(key)
         if ex is None:
             ex = num._solve_execs[key] = ScanSolveExecutor(
-                num.splan, width, dtype=num.pool.dtype,
-                matmul_precision=num.options.precision, device=dev)
+                num.splan, width, dtype=num.pool.dtype, device=dev)
         if str(ex.device) not in pools:
             pools[str(ex.device)] = num.pool.to(ex.device)
         execs.append(ex)

@@ -132,18 +132,21 @@ def test_refined_solve_on_host(case):
 
 
 def test_pinned_precision_restores_the_global_setting():
-    """The level executors pin IEEE float32 products for the block and put
-    the process-wide cuBLAS TF32 flag back afterwards, also on error."""
+    """The level executors pin the products' precision for the block
+    (IEEE float32 at 'highest' and 'high', TF32 at 'default') and put the
+    process-wide cuBLAS TF32 flag back afterwards, also on error."""
     from spllt_tpu_torch.numeric.factor_scan import pinned_precision
 
     mm = torch.backends.cuda.matmul
     prev = mm.allow_tf32
     try:
+        for flag in (True, False):
+            mm.allow_tf32 = flag
+            for p in ("highest", "high", "default"):
+                with pinned_precision(p):
+                    assert mm.allow_tf32 == (p == "default")
+                assert mm.allow_tf32 == flag
         mm.allow_tf32 = True
-        for p in ("highest", "high", "default"):
-            with pinned_precision(p):
-                assert not mm.allow_tf32
-            assert mm.allow_tf32
         with pytest.raises(KeyError):
             with pinned_precision("highest"):
                 raise KeyError("inside")
