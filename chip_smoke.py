@@ -448,14 +448,21 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
         rec["stream_table_bytes"] = table_bytes(fex.stream)
 
     if full_checks:
-        # refactorize new values on the same pattern: nothing is rebuilt
-        cache_before = {k: id(v) for k, v in symb._cache.items()}
+        # refactorize new values on the same pattern: nothing is rebuilt;
+        # the first matrix passed adds the pattern's value map, nothing else
+        from spllt_tpu_torch.api import _VALUES_KEY
+
+        def cache_ids():
+            return {k: id(v) for k, v in symb._cache.items()
+                    if k != _VALUES_KEY}
+
+        cache_before = cache_ids()
         vals2 = a.values * (1.0 + 0.25 * rng.random(a.values.shape))
         diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
         vals2[diag] = a.values[diag] * 1.5        # keep it SPD
         a2 = st.CscMatrix(a.n, a.colptr, a.rowind, vals2)
         num2 = st.factor(symb, a2)
-        require({k: id(v) for k, v in symb._cache.items()} == cache_before,
+        require(cache_ids() == cache_before and _VALUES_KEY in symb._cache,
                 "refactorization rebuilt a plan or an executor")
         require(num2.plan is num.plan and num2.fplan is num.fplan
                 and num2._solve_execs is num._solve_execs,

@@ -28,6 +28,7 @@ and trace ``factor`` and ``solve`` (:func:`_diag`, as ``spllt_tpu.api``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -112,15 +113,22 @@ def _coarse_key(options: Options):
     return (options.coarse_span, options.coarse_waste)
 
 
+def _symb_cache(symb: SymbolicFactor) -> dict:
+    """The per-pattern cache on the symbolic object (plans, executors, the
+    value map), made on first use."""
+    cache = getattr(symb, "_cache", None)
+    if cache is None:
+        cache = symb._cache = {}
+    return cache
+
+
 def _plans(symb: SymbolicFactor, options: Options):
     """Plans for (symb, blocking options) — cached on the symbolic object
     so repeated refactorizations (the reference's akeep-reuse pipeline,
     doc/source/subroutines.rst:37-75) pay the plan build once."""
     coarse_key = _coarse_key(options)
     key = ("plans", options.nb, coarse_key)
-    cache = getattr(symb, "_cache", None)
-    if cache is None:
-        cache = symb._cache = {}
+    cache = _symb_cache(symb)
     if key in cache:
         return cache[key]
     plan = build_block_plan(symb, options.nb)
@@ -169,25 +177,32 @@ def _diag(options: Options, name: str, flops: float = 0.0):
     timers feed the global registry (utils.timers.print_timers /
     timer_csv); trace events accumulate on the options' TraceLog (dump via
     num.trace_log.dump/dump_paje).  Both read the host clock, which the
-    phases keep honest: each ends in a host synchronisation."""
-    import contextlib
-
+    phases keep honest: each ends in a host synchronisation, or, like
+    ``factor.values``, runs on the host alone.  The context's value is the
+    dict of the trace event's arguments, which the phase may fill in (a
+    dict nobody reads when tracing is off)."""
     if not (options.timers or options.trace):
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    if options.timers:
-        from .utils.timers import timer
+        return contextlib.nullcontext({})
+    return _diag_on(options, name, flops)
 
-        stack.enter_context(timer(name, flops=flops))
-    if options.trace:
-        tl = getattr(options, "_trace_log", None)
-        if tl is None:
-            from .utils.tracing import TraceLog
 
-            tl = TraceLog()
-            object.__setattr__(options, "_trace_log", tl)
-        stack.enter_context(tl.event(name))
-    return stack
+@contextlib.contextmanager
+def _diag_on(options: Options, name: str, flops: float):
+    with contextlib.ExitStack() as stack:
+        args = {}
+        if options.timers:
+            from .utils.timers import timer
+
+            stack.enter_context(timer(name, flops=flops))
+        if options.trace:
+            tl = getattr(options, "_trace_log", None)
+            if tl is None:
+                from .utils.tracing import TraceLog
+
+                tl = TraceLog()
+                object.__setattr__(options, "_trace_log", tl)
+            args = stack.enter_context(tl.event(name))
+        yield args
 
 
 def trace_log(obj):
@@ -213,10 +228,16 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
            options: Options | None = None, devices=None) -> NumericFactor:
     """Numeric factorization.  ``a`` defaults to the matrix captured at
     analyse time; passing a new matrix with the same pattern refactorizes
-    (the akeep-reuse workflow of the reference).  ``devices``, for the
-    forest path only, replaces the device rule by an explicit list of
-    ``options.ndevices`` torch devices (a device may repeat: its shards then
-    run one after the other there)."""
+    (the akeep-reuse workflow of the reference).  The first such matrix
+    builds the pattern's value map (:class:`ValueMap`, in ``symb._cache``);
+    every later matrix whose ``colptr`` and ``rowind`` equal that one's by
+    value takes its values through the map in one gather.  Any other
+    pattern takes the full symmetric permutation and its check, which
+    raises ``ValueError`` unless the permuted pattern is the analysed one.
+    Either way the values factored are the same, bit for bit.
+    ``devices``, for the forest path only, replaces the device rule by an
+    explicit list of ``options.ndevices`` torch devices (a device may
+    repeat: its shards then run one after the other there)."""
     options = options or symb.options
     if devices is not None and (not _forest_run(options)
                                 or len(devices) != options.ndevices):
@@ -230,7 +251,7 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
 def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
                  options: Options, devices=None) -> NumericFactor:
     values = (symb.a_perm.values if a is None
-              else _permuted_values(symb, a))
+              else _permuted_values(symb, a, options))
     plan, fplan, splan = _plans(symb, options)
 
     inform = dataclasses.replace(symb.inform)
@@ -324,13 +345,71 @@ def _factor_forest(symb: SymbolicFactor, values, options: Options, plan,
                          options=options, inform=inform, mdf=fx)
 
 
-def _permuted_values(symb: SymbolicFactor, a: CscMatrix) -> np.ndarray:
-    """Re-permute values of a new matrix with the analysed pattern."""
+_VALUES_KEY = ("values",)
+
+
+@dataclasses.dataclass
+class ValueMap:
+    """Where the analysed order finds each value of a refactorized matrix:
+    for a matrix with these ``colptr`` and ``rowind``, ``values[pos]`` is
+    ``a.permute(symb.perm).values``, entry for entry.  Built by the first
+    ``factor(symb, a)`` with a matrix and cached in ``symb._cache``;
+    ``hits`` counts the later factorizations that gathered through it,
+    ``fallbacks`` those whose pattern arrays differed from it."""
+
+    n: int
+    colptr: np.ndarray           # copies of the user's pattern arrays
+    rowind: np.ndarray
+    pos: np.ndarray              # int64[nnz(A)]
+    hits: int = 0
+    fallbacks: int = 0
+
+    def matches(self, a: CscMatrix) -> bool:
+        """Whether ``a``'s pattern arrays equal the map's, by value (arrays
+        edited in place since the map was built do not match)."""
+        return (a.n == self.n and np.array_equal(a.colptr, self.colptr)
+                and np.array_equal(a.rowind, self.rowind))
+
+    def gather(self, a: CscMatrix) -> np.ndarray:
+        return np.take(np.asarray(a.values), self.pos).astype(np.float64,
+                                                              copy=False)
+
+
+def _permuted_values(symb: SymbolicFactor, a: CscMatrix,
+                     options: Options) -> np.ndarray:
+    """Values of a new matrix with the analysed pattern, in the analysed
+    order: one gather through the cached ValueMap when ``a``'s pattern
+    arrays equal those it was built from, else the full permutation and
+    its pattern check.  Both give the same values, bit for bit."""
+    cache = _symb_cache(symb)
+    vm = cache.get(_VALUES_KEY)
+    with _diag(options, "factor.values") as args:
+        if vm is not None and vm.matches(a):
+            vm.hits += 1
+            args["path"] = "gather"
+            return vm.gather(a)
+        args["path"] = "permute"
+        if vm is not None:
+            vm.fallbacks += 1
+            return _permute_checked(symb, a).values
+        # first matrix: permute the entries' positions instead of their
+        # values (exact below 2**53 entries) and keep the result
+        ap = _permute_checked(symb, dataclasses.replace(
+            a, values=np.arange(len(a.rowind), dtype=np.float64)))
+        vm = cache[_VALUES_KEY] = ValueMap(
+            n=a.n, colptr=np.array(a.colptr), rowind=np.array(a.rowind),
+            pos=ap.values.astype(np.int64))
+        return vm.gather(a)
+
+
+def _permute_checked(symb: SymbolicFactor, a: CscMatrix) -> CscMatrix:
+    """``a`` symmetrically permuted into the analysed order; ValueError
+    unless its pattern is then the analysed one."""
     ap = a.permute(symb.perm)
     if (not np.array_equal(ap.colptr, symb.a_perm.colptr)
             or not np.array_equal(ap.rowind, symb.a_perm.rowind)):
         raise ValueError("matrix pattern differs from analysed pattern")
-    return ap.values
+    return ap
 
 
 def solve(num: NumericFactor, b: np.ndarray, job: int = 0,

@@ -30,9 +30,11 @@ class TraceLog:
 
     @contextlib.contextmanager
     def event(self, name: str, category: str = "spllt", **args):
+        """Record the block as one complete event; yields the event's
+        ``args`` dict, which the block may fill in before it ends."""
         t0 = time.perf_counter()
         try:
-            yield
+            yield args
         finally:
             t1 = time.perf_counter()
             with self._lock:

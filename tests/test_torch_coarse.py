@@ -194,8 +194,8 @@ def test_dense_flag_alone_reaches_the_guard():
     bad = poisoned(mat, symb)
     from spllt_tpu_torch.api import _permuted_values
 
-    pool = assemble_torch(plan, _permuted_values(symb, bad), torch.float64,
-                          "cpu")
+    pool = assemble_torch(plan, _permuted_values(symb, bad, opt_t),
+                          torch.float64, "cpu")
     _, flag = DenseSubtreeExecutor(fp, "cpu")(pool)
     assert bool(flag)
 

@@ -10,7 +10,9 @@ import torch
 
 import spllt_tpu as sj
 import spllt_tpu_torch as st
+from spllt_tpu_torch.api import _VALUES_KEY, ValueMap
 from spllt_tpu_torch.convert import numeric_from_numpy, numeric_to_numpy
+from spllt_tpu_torch.utils import timers
 
 # One intra-op thread: the suite's xdist workers share the host's CPUs,
 # and with a thread per CPU each small op waits on a thread barrier.
@@ -198,14 +200,20 @@ def test_cuda_scan_factor_ignores_global_tf32():
 def test_refactorize_reuses_cached_plans_and_executors(case):
     symb, a = case["symb_t"], case["at"]
     num = case["num_t32"]
-    cache_ids = {k: id(v) for k, v in symb._cache.items()}
+
+    def cache_ids():
+        return {k: id(v) for k, v in symb._cache.items() if k != _VALUES_KEY}
+
+    before = cache_ids()
     rng = np.random.default_rng(3)
     diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
     vals = a.values * (1.0 + 0.2 * rng.random(a.values.shape))
     vals[diag] = a.values[diag] * 1.5
     a2 = st.CscMatrix(a.n, a.colptr, a.rowind, vals)
     num2 = st.factor(symb, a2, options=num.options)
-    assert {k: id(v) for k, v in symb._cache.items()} == cache_ids
+    # the one entry a refactorization may add is the pattern's value map
+    assert cache_ids() == before
+    assert isinstance(symb._cache[_VALUES_KEY], ValueMap)
     assert num2.plan is num.plan and num2.fplan is num.fplan
     assert num2.splan is num.splan
     assert num2._solve_execs is num._solve_execs
@@ -229,6 +237,70 @@ def test_pattern_mismatch_raises_value_error(case):
     with pytest.raises(ValueError, match="pattern"):
         sj.factor(case["num_j"].symb,
                   sj.sparse.generators._grid_laplacian((n,)))
+
+
+VALUE_MAP_CASES = {"p2d16": (16, 16), "p3d8": (8, 8, 8)}
+
+
+@pytest.mark.parametrize("mode", ["stf", "batched"])
+@pytest.mark.parametrize("grid", list(VALUE_MAP_CASES))
+def test_refactorize_gathers_through_the_value_map(grid, mode):
+    """Refactorizations of one pattern: the first builds the value map,
+    later ones with equal pattern arrays (new arrays each time) gather
+    through it, bit for bit what the full permutation gives; a changed
+    pattern and a rowind edited in place take the permutation and raise."""
+    shape = VALUE_MAP_CASES[grid]
+    a = st.sparse.generators._grid_laplacian(shape)
+    o = st.Options(device="cpu", dtype="float64", mode=mode, nb=16,
+                   ordering="nd-grid", grid_shape=shape, trace=True,
+                   timers=True)
+    symb = st.analyse(a, o)
+    timers.reset_timers()
+    rng = np.random.default_rng(17)
+    diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
+    mats = []
+    for _ in range(3):
+        vals = a.values * (1.0 + 0.3 * rng.random(a.values.shape))
+        vals[diag] = a.values[diag] * (1.5 + rng.random(a.n))
+        ak = st.CscMatrix(a.n, a.colptr.copy(), a.rowind.copy(), vals)
+        num = st.factor(symb, ak)
+        # today's permutation path, alone and through a fresh analysis
+        assert np.array_equal(num.values_perm, ak.permute(symb.perm).values)
+        ref = st.factor(st.analyse(ak, o))
+        assert np.array_equal(ref.symb.perm, symb.perm)
+        assert np.array_equal(num.values_perm, ref.values_perm)
+        if mode == "stf":
+            assert np.array_equal(num.pool, ref.pool)
+        else:
+            assert torch.equal(num.pool, ref.pool)
+        mats.append(ak)
+    vm = symb._cache[_VALUES_KEY]
+    assert (vm.hits, vm.fallbacks) == (2, 0)
+    assert "factor.values" in timers.print_timers()
+    timers.reset_timers()
+
+    def paths():
+        return [e["args"]["path"] for e in num.trace_log.events
+                if e["name"] == "factor.values"]
+
+    assert paths() == ["permute", "gather", "gather"]
+    with pytest.raises(ValueError,
+                       match="matrix pattern differs from analysed pattern"):
+        st.factor(symb, st.sparse.generators._grid_laplacian((a.n,)))
+    assert (vm.hits, vm.fallbacks) == (2, 1)
+    # the first matrix's rowind, edited in place: column 0's last row moves
+    first = mats[0]
+    first.rowind[first.colptr[1] - 1] = a.n - 1
+    with pytest.raises(ValueError,
+                       match="matrix pattern differs from analysed pattern"):
+        st.factor(symb, first)
+    assert (vm.hits, vm.fallbacks) == (2, 2)
+    assert paths() == ["permute", "gather", "gather", "permute", "permute"]
+    # the map kept its own copies: an unedited matrix still gathers
+    num = st.factor(symb, mats[1])
+    assert np.array_equal(num.values_perm,
+                          mats[1].permute(symb.perm).values)
+    assert (vm.hits, vm.fallbacks) == (3, 2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
