@@ -172,22 +172,23 @@ def _dense_key(options: Options, dev: torch.device):
     return ("dense", options.nb, str(dev), _coarse_key(options))
 
 
-def _diag(options: Options, name: str, flops: float = 0.0):
+def _diag(options: Options, name: str, flops: float = 0.0, sync=None):
     """Phase context for Options.timers/trace (ref timer_mod/trace_mod):
     timers feed the global registry (utils.timers.print_timers /
     timer_csv); trace events accumulate on the options' TraceLog (dump via
     num.trace_log.dump/dump_paje).  Both read the host clock, which the
     phases keep honest: each ends in a host synchronisation, or, like
-    ``factor.values``, runs on the host alone.  The context's value is the
-    dict of the trace event's arguments, which the phase may fill in (a
-    dict nobody reads when tracing is off)."""
+    ``factor.values``, runs on the host alone; ``sync``, a CUDA device,
+    makes the phase end in one (only while timers or tracing are on).  The
+    context's value is the dict of the trace event's arguments, which the
+    phase may fill in (a dict nobody reads when tracing is off)."""
     if not (options.timers or options.trace):
         return contextlib.nullcontext({})
-    return _diag_on(options, name, flops)
+    return _diag_on(options, name, flops, sync)
 
 
 @contextlib.contextmanager
-def _diag_on(options: Options, name: str, flops: float):
+def _diag_on(options: Options, name: str, flops: float, sync):
     with contextlib.ExitStack() as stack:
         args = {}
         if options.timers:
@@ -203,6 +204,8 @@ def _diag_on(options: Options, name: str, flops: float):
                 object.__setattr__(options, "_trace_log", tl)
             args = stack.enter_context(tl.event(name))
         yield args
+        if sync is not None and torch.device(sync).type == "cuda":
+            torch.cuda.synchronize(sync)
 
 
 def trace_log(obj):
@@ -274,7 +277,7 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
         pool = factorize_np(pool, fplan)
         solve_execs = {}
     else:
-        from .numeric.assemble import assemble_torch
+        from .numeric.assemble import assemble_torch, assemble_upload_bytes
 
         dev = _resolve_device(options)
         dtype = _torch_dtype(options)
@@ -285,7 +288,10 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
         if ex is None:
             ex = symb._cache[ekey] = _factor_executor(fplan, options, dtype,
                                                       dev)
-        pool = assemble_torch(plan, values, dtype, dev)
+        with _diag(options, "factor.assemble", sync=dev) as args:
+            pool = assemble_torch(plan, values, dtype, dev)
+            args.update(nnz=len(plan.asm_rowflat),
+                        h2d_bytes=assemble_upload_bytes(plan))
         dense_bad = None
         if fplan.dense:
             dkey = _dense_key(options, dev)
@@ -384,6 +390,7 @@ def _permuted_values(symb: SymbolicFactor, a: CscMatrix,
     cache = _symb_cache(symb)
     vm = cache.get(_VALUES_KEY)
     with _diag(options, "factor.values") as args:
+        args["nnz"] = len(a.rowind)
         if vm is not None and vm.matches(a):
             vm.hits += 1
             args["path"] = "gather"
@@ -474,16 +481,20 @@ def _solve_refined_device(num: NumericFactor, bb: np.ndarray,
 
     symb = num.symb
     dev = num.pool.device
-    ell = getattr(symb, "_ell", None)
-    if ell is None:
-        ell = symb._ell = build_ell(symb.a_perm)
-    # cached on the NumericFactor (NOT the shared executor cache: the
-    # ELL values change with every refactorization)
-    ell_dev = getattr(num, "_ell_dev", None)
-    if ell_dev is None:
-        ell_dev = num._ell_dev = (
-            torch.as_tensor(ell_vals(ell, num.values_perm), device=dev),
-            torch.as_tensor(ell.idx.astype(np.int64), device=dev))
+    with _diag(num.options, "solve.ell", sync=dev) as args:
+        ell = getattr(symb, "_ell", None)
+        if ell is None:
+            ell = symb._ell = build_ell(symb.a_perm)
+        # cached on the NumericFactor (NOT the shared executor cache: the
+        # ELL values change with every refactorization)
+        ell_dev = getattr(num, "_ell_dev", None)
+        rebuilt = ell_dev is None
+        if rebuilt:
+            ell_dev = num._ell_dev = (
+                torch.as_tensor(ell_vals(ell, num.values_perm), device=dev),
+                torch.as_tensor(ell.idx.astype(np.int64), device=dev))
+        args.update(kmax=ell.kmax, rebuilt=rebuilt, h2d_bytes=sum(
+            t.numel() * t.element_size() for t in ell_dev) if rebuilt else 0)
     vals64, idx = ell_dev
     ex = _solve_executor(num, bb.shape[1])
     x64 = ex.full_refined(num.pool, _padded_perm(num, bb), vals64, idx,

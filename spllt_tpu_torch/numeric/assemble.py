@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["assemble_np", "assemble_torch"]
+__all__ = ["assemble_np", "assemble_torch", "assemble_upload_bytes"]
 
 
 def assemble_np(plan, values: np.ndarray, dtype=np.float64) -> np.ndarray:
@@ -44,3 +44,9 @@ def assemble_torch(plan, values, dtype: torch.dtype,
                            device=device).to(dtype)
     poolf.index_put_((rows, cols), vals, accumulate=True)
     return poolf.view(plan.nblocks + 1, nb, nb)
+
+
+def assemble_upload_bytes(plan) -> int:
+    """Bytes :func:`assemble_torch` sends to its device each call: the int64
+    row and column of every entry and its float64 value."""
+    return 24 * len(plan.asm_rowflat)

@@ -206,9 +206,14 @@ def assemble_stream(runs, nb: int, pool_rows: int) -> dict:
     and check what the kernel relies on: windows inside the pool, ``dst``
     tile-aligned everywhere and sorted inside a UPD run, map entries in
     [-1, nb), ``aux`` and ``srcn`` in [0, nb], nb below 2**15 (the packed
-    entries)."""
+    entries), ``pool_rows`` at most 2**31 (the tables hold row bases in
+    int32; the kernels form each element offset, row base × nb, in 64
+    bits)."""
     if nb >= 2 ** 15:
         raise ValueError("factor stream: nb must be below 2**15")
+    if pool_rows > 2 ** 31:
+        raise ValueError("factor stream: pool rows past 2**31 do not fit "
+                         "the int32 row bases")
     run_ptr, run_kind, run_seg, run_rel, run_split = [0], [], [0], [], []
     run_dense, seg_ptr, relr_all, relc_all = [], [], [], []
     estart, enr_all, ent_all = [], [], []

@@ -89,7 +89,13 @@ def solve_stream(runs, nb: int, pool_rows: int, work_rows: int) -> dict:
     tables of the module docstring (NumPy int32).  Raises ``ValueError``
     when a table breaks what the kernel relies on: windows inside the pool
     and the work array, work windows nb-aligned, ``dst`` sorted inside an
-    ADDG/MM/MMT run, map entries in [-1, nb), ``aux`` in [0, nb]."""
+    ADDG/MM/MMT run, map entries in [-1, nb), ``aux`` in [0, nb], and
+    ``work_rows`` (which holds the pool's rows) at most 2**31: the tables
+    hold row bases in int32, and the kernel forms each element offset in 64
+    bits."""
+    if work_rows > 2 ** 31:
+        raise ValueError("solve stream: work rows past 2**31 do not fit "
+                         "the int32 row bases")
     run_ptr, run_kind, run_seg, run_rel, run_split = [0], [], [0], [], []
     seg_ptr, rel_all = [], []
     cols = {k: [] for k in _TASK_KEYS}

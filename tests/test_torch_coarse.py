@@ -235,7 +235,7 @@ def test_cache_keys_follow_the_coarse_options(schedule):
 def test_trace_and_timers_options(mode, schedule):
     """Options(trace=True, timers=True): factor and solve leave one event
     each on the factor's TraceLog and one node each in the timer registry,
-    as in spllt_tpu.api."""
+    as in spllt_tpu.api; the batched factor also its assembly's phase."""
     mat, _, symb, _ = analysed("poisson3d-6", mode=mode, schedule=schedule,
                                trace=True, timers=True)
     timers.reset_timers()
@@ -244,13 +244,14 @@ def test_trace_and_timers_options(mode, schedule):
     st.solve(num, b)
     st.solve(num, b, job=1)
     names = [e["name"] for e in num.trace_log.events]
-    assert names == ["factor", "solve(job=0)", "solve(job=1)"]
+    phases = ["factor.assemble"] if mode == "batched" else []
+    assert names == phases + ["factor", "solve(job=0)", "solve(job=1)"]
     assert all(e["dur"] > 0 for e in num.trace_log.events)
     from spllt_tpu_torch.api import trace_log
 
     assert trace_log(num) is num.trace_log is trace_log(num.options)
     text = timers.print_timers()
-    for nm in ("factor", "solve(job=0)", "solve(job=1)"):
+    for nm in phases + ["factor", "solve(job=0)", "solve(job=1)"]:
         assert nm in text
     timers.reset_timers()
     assert st.Options(device="cpu").timers is False
