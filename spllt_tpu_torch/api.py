@@ -63,6 +63,9 @@ class NumericFactor:
     # the forest path (Options.ndevices > 1): its ForestExecutor; ``pool``
     # then holds the list of the devices' local pools
     mdf: object | None = None
+    # values_perm on the pool's device, float64 [nnz(A) + 1]
+    # (numeric/spmv.DeviceEll.values), uploaded by the first refined solve
+    _ell_values: object | None = None
 
     @property
     def mode(self) -> str:
@@ -473,32 +476,37 @@ def _unpermute(num: NumericFactor, xp: np.ndarray) -> np.ndarray:
     return out
 
 
+def _ell_key(dev) -> tuple:
+    """``symb._cache`` key of the pattern's :class:`DeviceEll` on ``dev``."""
+    return ("ell", str(dev))
+
+
 def _solve_refined_device(num: NumericFactor, bb: np.ndarray,
                           refine: int) -> np.ndarray:
     """Refined solve on the pool's device (solves in the pool dtype + f64
-    ELL-SpMV residuals; see numeric/spmv.py)."""
-    from .numeric.spmv import build_ell, ell_vals
+    ELL-SpMV residuals; see numeric/spmv.py).  The ELL pattern is uploaded
+    once per pattern and device, the factor's values once per factor; each
+    residual gathers the ELL values from them on the device."""
+    from .numeric.spmv import DeviceEll, build_ell
 
     symb = num.symb
     dev = num.pool.device
     with _diag(num.options, "solve.ell", sync=dev) as args:
-        ell = getattr(symb, "_ell", None)
-        if ell is None:
-            ell = symb._ell = build_ell(symb.a_perm)
-        # cached on the NumericFactor (NOT the shared executor cache: the
-        # ELL values change with every refactorization)
-        ell_dev = getattr(num, "_ell_dev", None)
-        rebuilt = ell_dev is None
+        cache = _symb_cache(symb)
+        dell = cache.get(_ell_key(dev))
+        h2d = 0
+        if dell is None:
+            dell = cache[_ell_key(dev)] = DeviceEll.upload(
+                build_ell(symb.a_perm), len(symb.a_perm.rowind), dev)
+            h2d = dell.nbytes
+        rebuilt = num._ell_values is None
         if rebuilt:
-            ell_dev = num._ell_dev = (
-                torch.as_tensor(ell_vals(ell, num.values_perm), device=dev),
-                torch.as_tensor(ell.idx.astype(np.int64), device=dev))
-        args.update(kmax=ell.kmax, rebuilt=rebuilt, h2d_bytes=sum(
-            t.numel() * t.element_size() for t in ell_dev) if rebuilt else 0)
-    vals64, idx = ell_dev
+            num._ell_values = dell.values(num.values_perm)
+            h2d += num._ell_values.nbytes
+        args.update(kmax=dell.kmax, rebuilt=rebuilt, h2d_bytes=h2d)
     ex = _solve_executor(num, bb.shape[1])
-    x64 = ex.full_refined(num.pool, _padded_perm(num, bb), vals64, idx,
-                          refine)
+    x64 = ex.full_refined(num.pool, _padded_perm(num, bb),
+                          dell.matvec(num._ell_values), refine)
     return _unpermute(num, x64.cpu().numpy())
 
 

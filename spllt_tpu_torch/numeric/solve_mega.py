@@ -61,7 +61,6 @@ from ._build import check_launch, load, require_cuda_tensors
 from .factor_scan import canonical_device
 from .hopper_solve import left_solve_plain
 from .megakernel import segment_offsets, tables_to_device
-from .spmv import spmv
 
 __all__ = ["solve_stream", "stream_to_device", "work_items", "mega_solve",
            "mega_solve_plain", "edge_case_runs", "MegaSolveExecutor"]
@@ -426,10 +425,11 @@ class MegaSolveExecutor:
         work[:self.smp.P] = 0          # the panels start every sweep at zero
         return self._out(self._sweep(poolf, work, False))
 
-    def full_refined(self, pool, b64, vals64, idx, refine: int):
+    def full_refined(self, pool, b64, matvec, refine: int):
         """Refined A x = b, all on the device.  ``b64`` is the permuted
-        rhs [n+1, nrhs] float64 (dump row zero), ``vals64``/``idx`` the ELL
-        matrix (float64 / int64 tensors).  Starts from x = 0 and applies
+        rhs [n+1, nrhs] float64 (dump row zero), ``matvec`` maps such an x
+        to A x [n, nrhs] in float64 (``spmv.DeviceEll.matvec``, or
+        ``spmv.spmv`` on an ELL matrix).  Starts from x = 0 and applies
         ``refine + 1`` times ``x += solve(b − A x)``; returns float64
         [n+1, nrhs]."""
         n = self.n
@@ -437,6 +437,6 @@ class MegaSolveExecutor:
         x64 = torch.zeros_like(b64)
         rp = torch.zeros_like(b64)               # dump row stays zero
         for _ in range(refine + 1):
-            rp[:n] = b64[:n] - spmv(vals64, idx, x64)
+            rp[:n] = b64[:n] - matvec(x64)
             x64 += self.full(pool, rp).to(torch.float64)
         return x64

@@ -22,7 +22,6 @@ import torch
 
 from .factor_scan import canonical_device, pinned_precision
 from .hopper_solve import left_solve
-from .spmv import spmv
 
 __all__ = ["ScanSolveExecutor"]
 
@@ -163,10 +162,11 @@ class ScanSolveExecutor:
         pool = self._pool(pool)
         return self._run(pool, self._run(pool, self._rhs(x), True), False)
 
-    def full_refined(self, pool, b64, vals64, idx, refine: int):
+    def full_refined(self, pool, b64, matvec, refine: int):
         """Refined A x = b, all on the device.  ``b64`` is the permuted
-        rhs [n+1, nrhs] float64 (dump row zero), ``vals64``/``idx`` the ELL
-        matrix (float64 / int64 tensors).  Starts from x = 0 and applies
+        rhs [n+1, nrhs] float64 (dump row zero), ``matvec`` maps such an x
+        to A x [n, nrhs] in float64 (``spmv.DeviceEll.matvec``, or
+        ``spmv.spmv`` on an ELL matrix).  Starts from x = 0 and applies
         ``refine + 1`` times ``x += solve(b − A x)``; returns float64
         [n+1, nrhs]."""
         n = self.n
@@ -175,6 +175,6 @@ class ScanSolveExecutor:
         x64 = torch.zeros_like(b64)
         rp = torch.zeros_like(b64)               # dump row stays zero
         for _ in range(refine + 1):
-            rp[:n] = b64[:n] - spmv(vals64, idx, x64)
+            rp[:n] = b64[:n] - matvec(x64)
             x64 += self.full(pool, rp).to(torch.float64)
         return x64

@@ -10,6 +10,13 @@ the device.
 ELL layout: for row i of the FULL (symmetrized) permuted pattern,
 ``idx[i, :] `` holds column ids (padded with n → the x dump row, which is
 kept zero) and ``vals[i, :]`` the float64 values (padded with 0).
+
+On the device the layout is split (:class:`DeviceEll`): the pattern's
+``idx`` and ``src`` are uploaded once per pattern and device, each factor
+uploads its nnz(A) lower-CSC values once, and each product forms ``vals``
+from them by one gather through ``src``, equal to :func:`ell_vals` bit for
+bit.  Resident for one factor: 8·n·kmax + 8·(nnz + 1) bytes, never more
+than an [n, kmax] float64 and int64 pair.
 """
 
 from __future__ import annotations
@@ -17,8 +24,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["EllMatrix", "build_ell", "ell_vals", "spmv"]
+__all__ = ["EllMatrix", "DeviceEll", "build_ell", "ell_vals", "spmv"]
+
+# DeviceEll.src is int32 while nnz(A) + 1 is below this, else int64
+SRC_INT32_LIMIT = 2 ** 31
 
 
 @dataclasses.dataclass
@@ -70,6 +81,65 @@ def ell_vals(ell: EllMatrix, values: np.ndarray) -> np.ndarray:
     sel = ell.src >= 0
     v[sel] = np.asarray(values, dtype=np.float64)[ell.src[sel]]
     return v
+
+
+@dataclasses.dataclass
+class DeviceEll:
+    """The ELL pattern of one matrix pattern on one device, shared by every
+    factor of it: ``idx`` as :class:`EllMatrix` has it, and ``src``, the
+    slots' positions in a factor's device values (pads at nnz(A), the zero
+    :meth:`values` appends).  ``uploads`` counts the value arrays sent to
+    the device, ``gathers`` the residual operators made from them."""
+
+    idx: torch.Tensor            # int32 [n, kmax], pad n
+    src: torch.Tensor            # int32 (int64 from 2**31) [n, kmax], pad nnz
+    nnz: int
+    uploads: int = 0
+    gathers: int = 0
+
+    @classmethod
+    def upload(cls, ell: EllMatrix, nnz: int, device) -> "DeviceEll":
+        dtype = np.int32 if nnz + 1 < SRC_INT32_LIMIT else np.int64
+        src = np.where(ell.src >= 0, ell.src, nnz).astype(dtype)
+        return cls(idx=torch.as_tensor(ell.idx, device=device),
+                   src=torch.as_tensor(src, device=device), nnz=nnz)
+
+    @property
+    def kmax(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return self.idx.nbytes + self.src.nbytes
+
+    def values(self, values: np.ndarray) -> torch.Tensor:
+        """float64 [nnz + 1] on the device: ``values`` (the lower-CSC
+        values of a factor) and a zero for the pads."""
+        out = torch.empty(self.nnz + 1, dtype=torch.float64,
+                          device=self.idx.device)
+        out[:self.nnz].copy_(torch.as_tensor(
+            np.asarray(values, dtype=np.float64)))
+        out[self.nnz:].zero_()
+        self.uploads += 1
+        return out
+
+    def matvec(self, values: torch.Tensor):
+        """x ↦ A x for the factor whose device values are ``values`` (from
+        :meth:`values`): :func:`spmv` of the ELL values (``values`` gathered
+        through ``src``, :func:`ell_vals`'s bit for bit) and the int64
+        ``idx``, equal to it bit for bit.  Both are formed inside each
+        product and freed with it, ``x[idx]`` first and multiplied in
+        place, so a product holds 8·n·kmax bytes beside ``x[idx]``."""
+        self.gathers += 1
+        shape = self.src.shape
+
+        def apply(x):
+            y = x[self.idx.long()]
+            y *= values.index_select(0, self.src.view(-1)).view(shape)[
+                ..., None]
+            return y.sum(1)
+
+        return apply
 
 
 def spmv(vals, idx, x):
