@@ -226,6 +226,17 @@ PATH_EXECUTORS = {"scan": ("ScanFactorExecutor", "ScanSolveExecutor"),
                   "mega": ("MegaFactorExecutor", "MegaSolveExecutor")}
 
 
+def executors_of(num):
+    """(factor executor, solve executor) that ``num``'s options ran, from
+    its pattern's cache (both built already)."""
+    from spllt_tpu_torch.cache import executor_classes
+
+    c, dev = num.symb.cache, num.pool.device
+    return (c.factor_executor(num.symb, num.options, dev),
+            c.solve_executor(num, executor_classes(num.options.schedule)[1],
+                             dev))
+
+
 def live_blocks(mask: torch.Tensor, g: int) -> torch.Tensor:
     """Per row of ``mask`` [K, n]: g times the number of aligned blocks of
     g entries that hold a True one."""
@@ -402,8 +413,7 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
                                  f"schedule='{schedule}' main path")
 
     # steady state: cached plans and executors, CUDA-event timing
-    fex = next(v for k, v in symb._cache.items() if k[0] == "fex")
-    sex = num._solve_execs[(nrhs,)]
+    fex, sex = executors_of(num)
     require((type(fex).__name__, type(sex).__name__)
             == PATH_EXECUTORS[schedule],
             f"schedule='{schedule}' ran {type(fex).__name__} / "
@@ -450,11 +460,13 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
     if full_checks:
         # refactorize new values on the same pattern: nothing is rebuilt;
         # the first matrix passed adds the pattern's value map, nothing else
-        from spllt_tpu_torch.api import _VALUES_KEY
-
         def cache_ids():
-            return {k: id(v) for k, v in symb._cache.items()
-                    if k != _VALUES_KEY}
+            c, state = symb.cache, num.state
+            return [id(v) for v in (
+                *c.plans.values(), *c.stream_plans.values(),
+                *state.factor_executors.values(),
+                *state.dense_executors.values(),
+                *state.solve_executors.values(), state.ell)]
 
         cache_before = cache_ids()
         vals2 = a.values * (1.0 + 0.25 * rng.random(a.values.shape))
@@ -462,10 +474,11 @@ def main_path(m: int, card: str, full_checks: bool, schedule: str):
         vals2[diag] = a.values[diag] * 1.5        # keep it SPD
         a2 = st.CscMatrix(a.n, a.colptr, a.rowind, vals2)
         num2 = st.factor(symb, a2)
-        require(cache_ids() == cache_before and _VALUES_KEY in symb._cache,
+        require(cache_ids() == cache_before
+                and symb.cache.value_map is not None,
                 "refactorization rebuilt a plan or an executor")
         require(num2.plan is num.plan and num2.fplan is num.fplan
-                and num2._solve_execs is num._solve_execs,
+                and num2.state is num.state,
                 "refactorization did not reuse the cached plans")
         err2 = bwd_err(a2, st.solve(num2, b), b)
         require(err2 <= BWD_ERR_MAX, f"refactorized backward error {err2}")
@@ -1258,7 +1271,7 @@ def mega_solve_check(num, sex, nrhs, rng, tol: float = 1e-5):
         x[:-1] = torch.as_tensor(
             rng.standard_normal((num.symb.n, r_), dtype=np.float32),
             device="cuda")
-        w0 = sex._work(x)
+        w0 = sex.load(x)
         buf = torch.empty_like(w0)
         for d, tag in ((0, "fwd"), (1, "bwd")):
             st_d = sex._streams[d]
@@ -1321,7 +1334,7 @@ def solve_run_times(num, sex, nrhs_list=(4, 64)) -> dict:
         x[:-1] = torch.as_tensor(
             rng.standard_normal((num.symb.n, r_), dtype=np.float32),
             device="cuda")
-        w0 = sex._work(x)
+        w0 = sex.load(x)
         buf = torch.empty_like(w0)
         for d, tag in ((0, "fwd"), (1, "bwd")):
             stream = sex._streams[d]
@@ -1493,7 +1506,6 @@ def edge_stream_phase():
     tolerance, and the runs with fewer blocks must equal the full one bit
     for bit (no result depends on which block took an item)."""
     import spllt_tpu_torch as st
-    from spllt_tpu_torch.api import _plans
     from spllt_tpu_torch.numeric import hopper_update as hu
     from spllt_tpu_torch.numeric import megakernel as mk
     from spllt_tpu_torch.numeric import solve_mega as sm
@@ -1516,7 +1528,7 @@ def edge_stream_phase():
             ("p2d12_nb8_f64", st.poisson2d(12),
              dict(ordering="nd", nb=8, nemin=4), torch.float64)):
         symb = st.analyse(a, st.Options(**kw))
-        plan, fplan, _ = _plans(symb, symb.options)
+        plan, fplan, _ = symb.cache.block_plans(symb, symb.options)
         nb = plan.nb
         rows_ = (plan.nblocks + 1) * nb
         stream = mk.stream_to_device(mk.build_mega_stream(fplan, rows_),
@@ -2315,7 +2327,6 @@ def coarse_phase(m: int, card: str):
     positive definite, and K1 on each bucket's real fronts.  Returns the
     ``kernels`` rows of K1 at the fronts' shapes."""
     import spllt_tpu_torch as st
-    from spllt_tpu_torch.api import _dense_key, _exec_key
     from spllt_tpu_torch.numeric import hopper_potrf
     from spllt_tpu_torch.numeric.assemble import assemble_torch
 
@@ -2337,10 +2348,9 @@ def coarse_phase(m: int, card: str):
         plain_opts = main_options(m, schedule)
         # the dense executor serves both schedules: its per-bucket counts
         # are zeroed with the wrappers' (a new executor starts at 0)
-        dkey = _dense_key(opts, dev)
-        known = getattr(symb, "_cache", {}).get(dkey)
-        for t in (known.buckets if known is not None else ()):
-            t["launches"] = 0
+        for known in symb.cache.device(dev).dense_executors.values():
+            for t in known.buckets:
+                t["launches"] = 0
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -2348,7 +2358,7 @@ def coarse_phase(m: int, card: str):
         first_factor_s = time.perf_counter() - t0
         x = st.solve(num, b)
         launches = {k: int(w.launches) for k, w in wrappers.items()}
-        dx = symb._cache[dkey]
+        dx = symb.cache.dense_executor(symb, opts, dev)
         counted = [int(t["launches"]) for t in dx.buckets]
         require(counted == [1] * len(counted), f"coarse {schedule}: K1 "
                 f"launches per bucket {counted}, not one each")
@@ -2365,7 +2375,7 @@ def coarse_phase(m: int, card: str):
         for k in PATH_KERNELS[schedule] + ("potrf",):
             require(launches[k] > 0, f"coarse {schedule}: kernel {k} was "
                                      "never launched")
-        fex = symb._cache[_exec_key("fex", opts, dev)]
+        fex = symb.cache.factor_executor(symb, opts, dev)
         levels = (sum("potrf" in lv for lv in fex.levels)
                   if schedule == "scan" else 0)
         require(launches["potrf"] == len(buckets) + levels,
@@ -2376,7 +2386,7 @@ def coarse_phase(m: int, card: str):
         mabs, rel = rel_err(num.pool, plain.pool)
         require(rel <= 1e-5, f"coarse {schedule}: factor differs from the "
                              f"non-coarse factor: rel {rel}")
-        pfex = symb._cache[_exec_key("fex", plain_opts, dev)]
+        pfex = symb.cache.factor_executor(symb, plain_opts, dev)
 
         def assembled():
             return assemble_torch(num.plan, num.values_perm, torch.float32,
@@ -2640,7 +2650,7 @@ def forest_expected_launches(fx, refine: int) -> dict:
     once per level that has tasks of the kernel's kind."""
     local, top = fx.solvers()
     fexs, sexs = fx.local_ex + [fx.top_ex], local + [top]
-    if fx.mega:
+    if type(fx.top_ex).__name__ == "MegaFactorExecutor":
         return {"mega_factor": sum(ex.num_runs > 0 for ex in fexs),
                 "mega_solve": (refine + 1) * sum(
                     s["run_kind"].shape[0] > 0 for ex in sexs
@@ -3072,10 +3082,7 @@ def precision_run(a, symb, m: int, schedule: str, precision: str,
         require(launches[k] > 0, f"{tag}: kernel {k} was never launched")
     require(all(n == 0 for k, n in variant_launches().items() if k != ran),
             f"{tag}: another update body than {ran} ran: {launches}")
-    family = "mega" if schedule == "mega" else "level"
-    fex = next(e for k, e in symb._cache.items()
-               if k[0] == "fex" and k[1] == family and k[4] == precision)
-    sex = num._solve_execs[(b.shape[1],)]
+    fex, sex = executors_of(num)
     require((type(fex).__name__, type(sex).__name__)
             == PATH_EXECUTORS[schedule] and fex.precision == precision,
             f"{tag}: ran {type(fex).__name__} / {type(sex).__name__} at "
@@ -3123,8 +3130,7 @@ def scan_precision_share(a, symb, m: int, b: np.ndarray, card: str) -> dict:
         nums[p] = st.factor(symb, options=main_options(m, "scan",
                                                        precision=p))
         st.solve(nums[p], b)
-        fexs[p] = next(e for k, e in symb._cache.items()
-                       if k[0] == "fex" and k[1] == "level" and k[4] == p)
+        fexs[p] = executors_of(nums[p])[0]
     out = {p: dict(factor_ms_rounds=[], device_allocs=0) for p in precs}
     for _ in range(3):
         for p in precs:
@@ -3138,7 +3144,7 @@ def scan_precision_share(a, symb, m: int, b: np.ndarray, card: str) -> dict:
     for p in precs:
         o = out[p]
         o["factor_ms_median"] = float(np.median(o["factor_ms_rounds"]))
-        sex = nums[p]._solve_execs[(b.shape[1],)]
+        sex = executors_of(nums[p])[1]
         prof, _ = profile_main_path(nums[p], fexs[p], sex, b.shape[1])
         o.update(prof["factor"])
         o["host_share_ms"] = o["factor_ms_median"] - o["device_kernel_ms"]

@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 
+from ..cache import PatternCache
 from ..inform import Inform
 from ..options import Options
 from ..sparse.csc import CscMatrix
@@ -28,7 +29,9 @@ __all__ = ["SymbolicFactor", "analyse"]
 @dataclasses.dataclass
 class SymbolicFactor:
     """Symbolic factorization (akeep analogue).  All structure indices refer
-    to the final permuted ordering; ``perm`` maps back to user indices."""
+    to the final permuted ordering; ``perm`` maps back to user indices.
+    ``cache`` holds what the port builds for the pattern (plans,
+    executors, the value map): every factorization of it shares them."""
 
     n: int
     perm: np.ndarray               # perm[i] = user index at permuted pos i
@@ -39,6 +42,10 @@ class SymbolicFactor:
     small: np.ndarray              # pruning marks (spllt_prune_tree analogue)
     inform: Inform = dataclasses.field(default_factory=Inform)
     options: Options = dataclasses.field(default_factory=Options)
+
+    def __post_init__(self):
+        # not a field: the fields are the reference's, one for one
+        self.cache = PatternCache()
 
     @property
     def nnodes(self) -> int:

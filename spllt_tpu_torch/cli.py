@@ -121,11 +121,11 @@ def main(argv=None) -> int:
         coarse_subtrees=args.coarse, solve_group=args.solve_group,
         device=args.device,
     )
-    from .api import _resolve_devices
+    from .cache import resolve_devices
 
     try:
         if options.mode == "batched":
-            _resolve_devices(options)
+            resolve_devices(options)
     except (RuntimeError, ValueError) as e:
         print(f"spllt_tpu_torch: {e}", file=sys.stderr)
         return 2

@@ -22,13 +22,11 @@ partition (:func:`.parallel.forest.build_multidevice_factor`).
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from .api import (NumericFactor, _exec_key, _forest_executor, _forest_run,
-                  _plans, _resolve_device, _resolve_devices, _torch_dtype)
+from .api import NumericFactor, numeric_factor
+from .cache import forest_run, resolve_device, resolve_devices, torch_dtype
 from .parallel.forest import reconstruct_global_pool
 
 __all__ = ["numeric_from_numpy", "numeric_to_numpy", "shards_from_numpy",
@@ -43,7 +41,7 @@ def numeric_from_numpy(symb, pool_np: np.ndarray, values_perm: np.ndarray,
     the pool is kept as a float64 NumPy array ('stf') or moved to
     ``options.device`` in ``options.dtype`` ('batched')."""
     options = options or symb.options
-    plan, fplan, splan = _plans(symb, options)
+    plan = symb.cache.block_plans(symb, options)[0]
     pool_np = np.asarray(pool_np)
     want = (plan.nblocks + 1, plan.nb, plan.nb)
     if pool_np.shape != want:
@@ -52,33 +50,21 @@ def numeric_from_numpy(symb, pool_np: np.ndarray, values_perm: np.ndarray,
     values_perm = np.asarray(values_perm)
     if values_perm.shape != symb.a_perm.values.shape:
         raise ValueError("values_perm does not match the analysed pattern")
-    inform = dataclasses.replace(symb.inform)
-    inform.num_blocks = plan.nblocks
-    inform.num_levels = fplan.nlevels
-    inform.num_tasks = fplan.num_tasks
     mdf = None
     if options.mode == "stf":
         pool = np.array(pool_np, dtype=np.float64)
-        solve_execs = {}
-    elif _forest_run(options):
-        mdf = _forest_executor(symb, options, plan, fplan, splan,
-                               _resolve_devices(options))
+    elif forest_run(options):
+        mdf = symb.cache.forest_executor(symb, options,
+                                         resolve_devices(options))
         part = mdf.md.part
         top = np.flatnonzero(part.blk_dev == -1)
         pool = shards_from_numpy(mdf.md, [
             pool_np[np.concatenate([top, np.flatnonzero(part.blk_dev == d)])]
             for d in range(part.ndev)], mdf.dtype, mdf.devices)
-        solve_execs = {}
     else:
-        dev = _resolve_device(options)
-        pool = torch.tensor(pool_np, dtype=_torch_dtype(options),
-                            device=dev)          # always a private copy
-        solve_execs = symb._cache.setdefault(_exec_key("sex", options, dev),
-                                             {})
-    return NumericFactor(symb=symb, plan=plan, fplan=fplan, splan=splan,
-                         pool=pool, values_perm=values_perm,
-                         options=options, inform=inform,
-                         _solve_execs=solve_execs, mdf=mdf)
+        pool = torch.tensor(pool_np, dtype=torch_dtype(options),
+                            device=resolve_device(options))  # a private copy
+    return numeric_factor(symb, options, pool, values_perm, mdf=mdf)
 
 
 def numeric_to_numpy(num: NumericFactor):

@@ -5,7 +5,7 @@ work array ``work[P + X, nrhs]`` (row major: P rows of per-node partial-sum
 panels, then the right-hand side in node-padded order ``xp``); the factor
 pool is only read.  ``solve_stream`` flattens one direction's runs into flat
 int32 tables, ``mega_solve`` executes them, ``MegaSolveExecutor`` wraps both
-directions behind the interface of :class:`.solve_scan.ScanSolveExecutor`.
+directions behind the interface of :class:`.solve_executor.SolveExecutor`.
 
 Tables of one direction:
 
@@ -55,12 +55,13 @@ import ctypes
 import numpy as np
 import torch
 
-from ..plan.solve_mega import (KIND_ADDG, KIND_MM, KIND_MMT, KIND_SOL,
-                               KIND_SOLT, build_solve_mega_plan)
+from ..parallel.forest_mega import device_solve_executors
+from ..plan.solve_mega import KIND_ADDG, KIND_MM, KIND_MMT, KIND_SOL, KIND_SOLT
 from ._build import check_launch, load, require_cuda_tensors
 from .factor_scan import canonical_device
 from .hopper_solve import left_solve_plain
 from .megakernel import segment_offsets, tables_to_device
+from .solve_executor import SolveExecutor
 
 __all__ = ["solve_stream", "stream_to_device", "work_items", "mega_solve",
            "mega_solve_plain", "edge_case_runs", "MegaSolveExecutor"]
@@ -343,29 +344,25 @@ mega_solve.launches = 0
 mega_solve.last_grid = 0
 
 
-class MegaSolveExecutor:
-    """Holds the solve streams of both directions on ``device``;
-    call-compatible with :class:`.solve_scan.ScanSolveExecutor`.
+class MegaSolveExecutor(SolveExecutor):
+    """Holds the solve streams of both directions on ``device``.  The work
+    array is [P + X, nrhs]: zero panels, then the rhs in node-padded order.
 
-    ``nrhs`` is recorded for the caller's cache key; the tables serve any
-    number of right-hand sides.  ``smp`` is a ``SolveMegaPlan`` built
-    earlier for the same (symb, plan), else it is built here.  float32 and
-    float64 are both taken (one kernel template), at any nb."""
+    ``smp`` is the ``SolveMegaPlan`` of (symb, plan).  float32 and float64
+    are both taken (one kernel template), at any nb."""
 
-    def __init__(self, symb, plan, nrhs: int,
-                 dtype: torch.dtype = torch.float32, device="cuda",
-                 smp=None):
+    uses_stream_plan = True
+
+    def __init__(self, symb, plan, smp, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
         if dtype not in _SUFFIX:
             raise ValueError(f"the solve stream kernel takes float32 or "
                              f"float64, not {dtype}")
-        self.smp = smp if smp is not None else build_solve_mega_plan(symb,
-                                                                     plan)
+        self.smp = smp
         self.nb = plan.nb
         self.n = symb.n
-        self.nrhs = nrhs
         self.dtype = dtype
         self.device = canonical_device(device)
-        smp = self.smp
         self.pool_rows = (plan.nblocks + 1) * plan.nb
         self.work_rows = smp.P + smp.X
         self._streams = tuple(
@@ -375,20 +372,14 @@ class MegaSolveExecutor:
         self._xp_src = torch.as_tensor(smp.xp_src, device=self.device)
         self._col_to_xp = torch.as_tensor(smp.col_to_xp, device=self.device)
 
-    # ------------------------------------------------------------------ #
-    def _pool(self, pool):
-        if pool.dtype != self.dtype or pool.device != self.device \
-                or not pool.is_contiguous():
-            raise ValueError(
-                f"pool must be contiguous {self.dtype} on {self.device}, "
-                f"got {pool.dtype} on {pool.device}")
-        poolf = pool.view(-1, self.nb)
-        if poolf.shape[0] != self.pool_rows:
-            raise ValueError("pool must be [nblocks+1, nb, nb] (with the "
-                             "trailing zero block)")
-        return poolf
+    @classmethod
+    def of_plans(cls, symb, plan, splan, smp, dtype, device):
+        return cls(symb, plan, smp, dtype=dtype, device=device)
 
-    def _work(self, x):
+    of_forest = staticmethod(device_solve_executors)
+
+    # ------------------------------------------------------------------ #
+    def load(self, x):
         """A new work array: zero panels, then x [n+1, nrhs] (row n is the
         zero dump row) gathered into node-padded order."""
         x = torch.as_tensor(x, device=self.device).to(self.dtype)
@@ -400,43 +391,24 @@ class MegaSolveExecutor:
         work[self.smp.P:] = x[self._xp_src]
         return work
 
-    def _out(self, work):
+    def sweep(self, pool, work, forward: bool):
+        if pool.dtype != self.dtype or pool.device != self.device \
+                or not pool.is_contiguous():
+            raise ValueError(
+                f"pool must be contiguous {self.dtype} on {self.device}, "
+                f"got {pool.dtype} on {pool.device}")
+        poolf = pool.view(-1, self.nb)
+        if poolf.shape[0] != self.pool_rows:
+            raise ValueError("pool must be [nblocks+1, nb, nb] (with the "
+                             "trailing zero block)")
+        return mega_solve(poolf, work, self._streams[0 if forward else 1])
+
+    def begin_backward(self, work) -> None:
+        """The panels start every sweep at zero."""
+        work[:self.smp.P] = 0
+
+    def unload(self, work):
         out = torch.zeros((self.n + 1, work.shape[1]), dtype=self.dtype,
                           device=self.device)
         out[:self.n] = work[self.smp.P:][self._col_to_xp]
         return out
-
-    def _sweep(self, poolf, work, forward: bool):
-        return mega_solve(poolf, work, self._streams[0 if forward else 1])
-
-    # pool: [nblocks+1, nb, nb] factor; x: [n+1, nrhs] padded rhs (tensor
-    # or array; not modified).  Each returns a new [n+1, nrhs] tensor.
-
-    def fwd(self, pool, x):
-        return self._out(self._sweep(self._pool(pool), self._work(x), True))
-
-    def bwd(self, pool, x):
-        return self._out(self._sweep(self._pool(pool), self._work(x), False))
-
-    def full(self, pool, x):
-        """L y = x; Lᵀ z = y (job=0)."""
-        poolf = self._pool(pool)
-        work = self._sweep(poolf, self._work(x), True)
-        work[:self.smp.P] = 0          # the panels start every sweep at zero
-        return self._out(self._sweep(poolf, work, False))
-
-    def full_refined(self, pool, b64, matvec, refine: int):
-        """Refined A x = b, all on the device.  ``b64`` is the permuted
-        rhs [n+1, nrhs] float64 (dump row zero), ``matvec`` maps such an x
-        to A x [n, nrhs] in float64 (``spmv.DeviceEll.matvec``, or
-        ``spmv.spmv`` on an ELL matrix).  Starts from x = 0 and applies
-        ``refine + 1`` times ``x += solve(b − A x)``; returns float64
-        [n+1, nrhs]."""
-        n = self.n
-        b64 = torch.as_tensor(b64, device=self.device).to(torch.float64)
-        x64 = torch.zeros_like(b64)
-        rp = torch.zeros_like(b64)               # dump row stays zero
-        for _ in range(refine + 1):
-            rp[:n] = b64[:n] - matvec(x64)
-            x64 += self.full(pool, rp).to(torch.float64)
-        return x64

@@ -11,8 +11,7 @@ only, so the dump row is never written.
   upd : off-diagonal tiles → ``torch.bmm`` + ``index_add_`` (outside any
         hand-written kernel in the JAX package as well)
 
-``full_refined`` runs the whole refined solve on the device: solves in the
-pool's dtype, float64 ELL-SpMV residuals (:mod:`.spmv`), float64 sum.
+The work array of a sweep is the padded rhs itself, in the pool dtype.
 """
 
 from __future__ import annotations
@@ -22,25 +21,33 @@ import torch
 
 from .factor_scan import canonical_device, pinned_precision
 from .hopper_solve import left_solve
+from .solve_executor import SolveExecutor
 
 __all__ = ["ScanSolveExecutor"]
 
 
-class ScanSolveExecutor:
-    """Holds the per-level index tables of one SolvePlan on ``device``.
-    ``nrhs`` is recorded for the caller's cache key; the tables serve any
-    number of right-hand sides."""
+class ScanSolveExecutor(SolveExecutor):
+    """Holds the per-level index tables of one SolvePlan on ``device``."""
 
-    def __init__(self, sp, nrhs: int, dtype: torch.dtype = torch.float32,
+    def __init__(self, sp, dtype: torch.dtype = torch.float32,
                  device="cuda"):
         self.sp = sp
         self.nb = sp.nb
         self.n = sp.n
-        self.nrhs = nrhs
         self.dtype = dtype
         self.device = canonical_device(device)
         self._fwd_levels = self._prep(True)
         self._bwd_levels = self._prep(False)
+
+    @classmethod
+    def of_plans(cls, symb, plan, splan, smp, dtype, device):
+        return cls(splan, dtype=dtype, device=device)
+
+    @classmethod
+    def of_forest(cls, md, smp, devices, dtype):
+        return ([cls(md.solve_view(d), dtype=dtype, device=dev)
+                 for d, dev in enumerate(devices)],
+                cls(md.solve_view(-1), dtype=dtype, device=devices[0]))
 
     # ------------------------------------------------------------------ #
     def _prep(self, forward: bool):
@@ -115,66 +122,31 @@ class ScanSolveExecutor:
         x.index_add_(0, t["out_rows"],
                      u.reshape(-1, u.shape[-1])[t["out_sel"]], alpha=-1)
 
-    def _run(self, pool, x, forward: bool):
-        """One sweep, in place on x [n+1, nrhs]; the products run in IEEE
-        arithmetic at every precision, as the solve kernels do
-        (:func:`pinned_precision`)."""
-        with pinned_precision("highest"):
-            for lv in (self._fwd_levels if forward else self._bwd_levels):
-                if forward:
-                    if "sol" in lv:
-                        self._sol_op(pool, x, lv["sol"], True)
-                    if "upd" in lv:
-                        self._upd_op(pool, x, lv["upd"], True)
-                else:
-                    if "upd" in lv:
-                        self._upd_op(pool, x, lv["upd"], False)
-                    if "sol" in lv:
-                        self._sol_op(pool, x, lv["sol"], False)
-        return x
-
-    def _rhs(self, x):
+    def load(self, x):
         """A private working copy of the padded rhs in the pool dtype."""
         x = torch.as_tensor(x, device=self.device).to(self.dtype, copy=True)
         if x.shape[0] != self.n + 1:
             raise ValueError("rhs must be padded to [n+1, nrhs]")
         return x.contiguous()
 
-    def _pool(self, pool):
+    def sweep(self, pool, work, forward: bool):
+        """One sweep, in place on ``work``; the products run in IEEE
+        arithmetic at every precision, as the solve kernels do
+        (:func:`pinned_precision`)."""
         if pool.dtype != self.dtype or pool.device != self.device:
             raise ValueError(
                 f"pool must be {self.dtype} on {self.device}, got "
                 f"{pool.dtype} on {pool.device}")
-        return pool
-
-    # ------------------------------------------------------------------ #
-    # pool: [nblocks+1, nb, nb] factor; x: [n+1, nrhs] padded rhs (tensor
-    # or array; not modified).  Each returns a new [n+1, nrhs] tensor.
-
-    def fwd(self, pool, x):
-        return self._run(self._pool(pool), self._rhs(x), True)
-
-    def bwd(self, pool, x):
-        return self._run(self._pool(pool), self._rhs(x), False)
-
-    def full(self, pool, x):
-        """L y = x; Lᵀ z = y (job=0)."""
-        pool = self._pool(pool)
-        return self._run(pool, self._run(pool, self._rhs(x), True), False)
-
-    def full_refined(self, pool, b64, matvec, refine: int):
-        """Refined A x = b, all on the device.  ``b64`` is the permuted
-        rhs [n+1, nrhs] float64 (dump row zero), ``matvec`` maps such an x
-        to A x [n, nrhs] in float64 (``spmv.DeviceEll.matvec``, or
-        ``spmv.spmv`` on an ELL matrix).  Starts from x = 0 and applies
-        ``refine + 1`` times ``x += solve(b − A x)``; returns float64
-        [n+1, nrhs]."""
-        n = self.n
-        pool = self._pool(pool)
-        b64 = torch.as_tensor(b64, device=self.device).to(torch.float64)
-        x64 = torch.zeros_like(b64)
-        rp = torch.zeros_like(b64)               # dump row stays zero
-        for _ in range(refine + 1):
-            rp[:n] = b64[:n] - matvec(x64)
-            x64 += self.full(pool, rp).to(torch.float64)
-        return x64
+        with pinned_precision("highest"):
+            for lv in (self._fwd_levels if forward else self._bwd_levels):
+                if forward:
+                    if "sol" in lv:
+                        self._sol_op(pool, work, lv["sol"], True)
+                    if "upd" in lv:
+                        self._upd_op(pool, work, lv["upd"], True)
+                else:
+                    if "upd" in lv:
+                        self._upd_op(pool, work, lv["upd"], False)
+                    if "sol" in lv:
+                        self._sol_op(pool, work, lv["sol"], False)
+        return work

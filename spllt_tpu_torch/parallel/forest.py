@@ -291,36 +291,29 @@ class ForestExecutor:
     per device of the partition; a device may repeat, and then its shards
     run one after the other on it).
 
-    ``schedule`` 'scan' (or 'unrolled') runs the level executors, 'mega' the
-    stream executors; both take float32 and float64 at any nb.  ``smp``,
-    the solve stream plan of (symb, plan), is needed for 'mega'.  The
-    tables do not depend on the values: one executor serves every
-    refactorization of the pattern."""
+    ``executors`` is the (factor executor class, solve executor class) pair
+    of the schedule (:func:`..cache.executor_classes`); both take float32
+    and float64 at any nb.  ``smp``, the solve stream plan of (symb, plan),
+    is needed where the solve class ``uses_stream_plan``.  The tables do not
+    depend on the values: one executor serves every refactorization of the
+    pattern."""
 
-    def __init__(self, md: MultiDeviceFactor, devices, dtype=torch.float32,
-                 matmul_precision: str = "highest", schedule: str = "scan",
+    def __init__(self, md: MultiDeviceFactor, devices, executors,
+                 dtype=torch.float32, matmul_precision: str = "highest",
                  smp=None):
         if len(devices) != md.part.ndev:
             raise ValueError(f"{len(devices)} devices for a partition over "
                              f"{md.part.ndev}")
-        if schedule == "mega":
-            from ..numeric.megakernel import MegaFactorExecutor as Executor
-
-            if smp is None:
-                raise ValueError("schedule='mega' needs the solve stream "
-                                 "plan (smp)")
-        else:
-            from ..numeric.factor_scan import ScanFactorExecutor as Executor
+        factor_cls, self.solve_cls = executors
         self.md = md
         self.devices = [canonical_device(d) for d in devices]
         self.dtype = dtype
-        self.mega = schedule == "mega"
         self.smp = smp
         kw = dict(dtype=dtype, matmul_precision=matmul_precision)
-        self.local_ex = [Executor(md.factor_view(d), device=dev, **kw)
+        self.local_ex = [factor_cls(md.factor_view(d), device=dev, **kw)
                          for d, dev in enumerate(self.devices)]
-        self.top_ex = Executor(md.factor_view(-1), device=self.devices[0],
-                               **kw)
+        self.top_ex = factor_cls(md.factor_view(-1), device=self.devices[0],
+                                 **kw)
         self._solvers = None
 
     # ------------------------------------------------------------------ #
@@ -380,29 +373,14 @@ class ForestExecutor:
         """([per-device solve executors], top solve executor), built at the
         first solve; they serve any number of right-hand sides."""
         if self._solvers is None:
-            kw = dict(dtype=self.dtype)
-            if self.mega:
-                from .forest_mega import device_solve_executors
-
-                self._solvers = device_solve_executors(self.md, self.smp,
-                                                       self.devices, **kw)
-            else:
-                from ..numeric.solve_scan import ScanSolveExecutor
-
-                self._solvers = (
-                    [ScanSolveExecutor(self.md.solve_view(d), 0, device=dev,
-                                       **kw)
-                     for d, dev in enumerate(self.devices)],
-                    ScanSolveExecutor(self.md.solve_view(-1), 0,
-                                      device=self.devices[0], **kw))
+            self._solvers = self.solve_cls.of_forest(self.md, self.smp,
+                                                     self.devices, self.dtype)
         return self._solvers
 
-    def _sweep(self, ex, pool, w, forward: bool):
+    @staticmethod
+    def _sweep(ex, pool, w, forward: bool):
         """One sweep of ``ex`` on a copy of ``w`` on its device."""
-        if self.mega:
-            return ex._sweep(ex._pool(pool), w.to(ex.device, copy=True),
-                             forward)
-        return (ex.fwd if forward else ex.bwd)(pool, w)
+        return ex.sweep(pool, w.to(ex.device, copy=True), forward)
 
     @staticmethod
     def _merge(w, outs):
@@ -416,19 +394,20 @@ class ForestExecutor:
     def solve(self, pools, xp, job: int = 0) -> torch.Tensor:
         """Forward (job 1), backward (job 2) or both (job 0) on the padded
         rhs ``xp`` [n+1, nrhs] (array or tensor, in factor order); returns
-        [n+1, nrhs] in the pool dtype on the first device."""
+        [n+1, nrhs] in the pool dtype on the first device.  The top's work
+        array carries the sweeps: the local sweeps of the backward phase
+        start from the top's, its panels included."""
         if job not in (0, 1, 2):
             raise ValueError(f"job must be 0, 1 or 2, got {job}")
         local, top = self.solvers()
-        w = top._work(xp) if self.mega else top._rhs(xp)
+        w = top.load(xp)
         if job in (0, 1):
             w = self._merge(w, [self._sweep(ex, p, w, True)
                                 for ex, p in zip(local, pools)])
             w = self._sweep(top, pools[0], w, True)
         if job in (0, 2):
-            if self.mega:
-                w[:self.smp.P] = 0     # the panels start every sweep at zero
+            top.begin_backward(w)
             w = self._sweep(top, pools[0], w, False)
             w = self._merge(w, [self._sweep(ex, p, w, False)
                                 for ex, p in zip(local, pools)])
-        return top._out(w) if self.mega else w
+        return top.unload(w)

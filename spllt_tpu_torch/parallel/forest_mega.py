@@ -79,8 +79,7 @@ def device_solve_executors(md, smp, devices, dtype):
         view = types.SimpleNamespace(P=smp.P, X=smp.X, xp_src=smp.xp_src,
                                      col_to_xp=smp.col_to_xp, fwd_runs=fwd,
                                      bwd_runs=bwd)
-        return MegaSolveExecutor(symb, plan, 0, dtype=dtype, device=dev,
-                                 smp=view)
+        return MegaSolveExecutor(symb, plan, view, dtype=dtype, device=dev)
 
     return ([executor(d, dev) for d, dev in enumerate(devices)],
             executor(-1, devices[0]))

@@ -30,7 +30,7 @@ def solve_rhs_sharded(num, b: np.ndarray, devices=None,
     the device count.  The pool is copied once to each other device and the
     copies are cached on ``num``; refinement runs in float64 on the host,
     as in :func:`..api.solve` with ``refine_device=False``."""
-    from ..api import _padded_perm, _unpermute, _user_matvec
+    from ..numeric.solve_executor import refined
     from ..numeric.solve_scan import ScanSolveExecutor
 
     if num.mdf is not None or not isinstance(num.pool, torch.Tensor):
@@ -45,31 +45,20 @@ def solve_rhs_sharded(num, b: np.ndarray, devices=None,
     k = len(devices)
     width = -(-nrhs // k)
 
-    pools = getattr(num, "_rhs_pools", None)
-    if pools is None:                   # device -> the pool there
-        pools = num._rhs_pools = {}
-    execs = []
-    for dev in devices:
-        key = ("rhs_sharded", str(dev))
-        ex = num._solve_execs.get(key)
-        if ex is None:
-            ex = num._solve_execs[key] = ScanSolveExecutor(
-                num.splan, width, dtype=num.pool.dtype, device=dev)
-        if str(ex.device) not in pools:
-            pools[str(ex.device)] = num.pool.to(ex.device)
-        execs.append(ex)
+    execs = [num.symb.cache.solve_executor(num, ScanSolveExecutor, dev)
+             for dev in devices]
+    for ex in execs:
+        if str(ex.device) not in num.rhs_pools:
+            num.rhs_pools[str(ex.device)] = num.pool.to(ex.device)
 
     def run_once(rhs):
-        xp = _padded_perm(num, rhs)
+        xp = num.padded(rhs)
         xp = np.pad(xp, ((0, 0), (0, width * k - nrhs)))
-        outs = [ex.full(pools[str(ex.device)],
+        outs = [ex.full(num.rhs_pools[str(ex.device)],
                         np.ascontiguousarray(xp[:, i * width:(i + 1) * width]))
                 for i, ex in enumerate(execs)]
         out = torch.cat([o.cpu() for o in outs], dim=1)[:, :nrhs]
-        return _unpermute(num, out.numpy().astype(np.float64))
+        return num.unpadded(out.numpy().astype(np.float64))
 
     refine = num.options.refine if refine is None else refine
-    x = run_once(bb)
-    for _ in range(refine):
-        x = x + run_once(bb - _user_matvec(num, x))
-    return x
+    return refined(run_once, lambda x: num.residual(bb, x), bb, refine)

@@ -99,36 +99,23 @@ def save_factor(path: str, num) -> None:
 def load_factor(path: str, device: str | None = None):
     """Rebuild a solvable NumericFactor from a checkpoint.  In batched mode
     the pool goes to ``device`` in the dtype it was saved in, and the factor
-    shares the symbolic object's solve-executor cache, as one made by
+    shares the symbolic object's per-device state, as one made by
     ``factor`` does; an ``stf`` pool stays a NumPy array.  With
     ``ndevices`` > 1 the pool is spread over the devices of the forest
     path."""
-    import dataclasses
-
     import torch
 
-    from ..api import (NumericFactor, _exec_key, _forest_run, _plans,
-                       _resolve_device)
+    from ..api import numeric_factor
+    from ..cache import forest_run, resolve_device
 
     symb = load_symbolic(path + ".symb.npz", device=device)
     options = symb.options
     z = np.load(path)
-    if _forest_run(options):
+    if forest_run(options):
         from ..convert import numeric_from_numpy
 
         return numeric_from_numpy(symb, z["pool"], z["values_perm"], options)
-    plan, fplan, splan = _plans(symb, options)
-    inform = dataclasses.replace(symb.inform)
-    inform.num_blocks = plan.nblocks
-    inform.num_levels = fplan.nlevels
-    inform.num_tasks = fplan.num_tasks
-    pool, solve_execs = z["pool"], {}
+    pool = z["pool"]
     if options.mode == "batched":
-        dev = _resolve_device(options)
-        pool = torch.as_tensor(pool, device=dev)
-        solve_execs = symb._cache.setdefault(_exec_key("sex", options, dev),
-                                             {})
-    return NumericFactor(
-        symb=symb, plan=plan, fplan=fplan, splan=splan,
-        pool=pool, values_perm=z["values_perm"],
-        options=options, inform=inform, _solve_execs=solve_execs)
+        pool = torch.as_tensor(pool, device=resolve_device(options))
+    return numeric_factor(symb, options, pool, z["values_perm"])

@@ -20,7 +20,6 @@ from spllt_tpu.cli import main as main_j
 from spllt_tpu.sparse.io import write_matrix_market, write_rutherford_boeing
 from spllt_tpu.utils.dot import atree_dot as dot_j
 from spllt_tpu.utils.stats import factor_plan_stats as stats_j
-from spllt_tpu_torch.api import _plans as plans_t
 from spllt_tpu_torch.cli import main as main_t
 from spllt_tpu_torch.utils.dot import atree_dot as dot_t
 from spllt_tpu_torch.utils.stats import factor_plan_stats as stats_t
@@ -108,7 +107,7 @@ def test_stats_and_dot_text_equal_reference():
     symb_j = sj.analyse(sj.poisson2d(12), sj.Options(**kw))
     symb_t = st.analyse(st.poisson2d(12), st.Options(device="cpu", **kw))
     fj = plans_j(symb_j, symb_j.options)[1]
-    ft = plans_t(symb_t, symb_t.options)[1]
+    ft = symb_t.cache.block_plans(symb_t, symb_t.options)[1]
     assert stats_t(ft) == stats_j(fj)
     assert print_stats(stats_t(ft)) == print_stats(stats_j(fj))
     assert dot_t(symb_t) == dot_j(symb_j)

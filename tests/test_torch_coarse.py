@@ -18,7 +18,6 @@ from spllt_tpu.analyse.coarsen import coarse_partition as partition_j
 from spllt_tpu.api import _plans as plans_j
 from spllt_tpu.numeric.subtree import subtree_np as subtree_np_j
 from spllt_tpu_torch.analyse.coarsen import coarse_partition as partition_t
-from spllt_tpu_torch.api import _dense_key, _plans as plans_t
 from spllt_tpu_torch.numeric.assemble import assemble_np, assemble_torch
 from spllt_tpu_torch.numeric.subtree import DenseSubtreeExecutor, subtree_np
 from spllt_tpu_torch.utils import timers
@@ -82,12 +81,13 @@ def test_dense_tables_equal_reference(name):
     tables among them, field by field."""
     _, symb_j, symb_t, opt_t = analysed(name)
     for pj, pt, nm in zip(plans_j(symb_j, symb_j.options),
-                          plans_t(symb_t, opt_t), ("plan", "fplan", "splan")):
+                          symb_t.cache.block_plans(symb_t, opt_t),
+                          ("plan", "fplan", "splan")):
         if nm == "fplan":
             pj, pt = (dataclasses.replace(p, dense=None) for p in (pj, pt))
         assert_same(pj, pt, nm)
     dj = plans_j(symb_j, symb_j.options)[1].dense
-    dt = plans_t(symb_t, opt_t)[1].dense
+    dt = symb_t.cache.block_plans(symb_t, opt_t)[1].dense
     assert dt and len(dj) == len(dt)
     for bj, bt in zip(dj, dt):
         assert set(bj) == set(bt)
@@ -98,7 +98,7 @@ def test_dense_tables_equal_reference(name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_subtree_np_equal_reference(name):
     _, symb_j, symb_t, opt_t = analysed(name)
-    plan, fp, _ = plans_t(symb_t, opt_t)
+    plan, fp, _ = symb_t.cache.block_plans(symb_t, opt_t)
     vals = symb_t.a_perm.values
     got = subtree_np(assemble_np(plan, vals), vals, fp)
     ref = subtree_np_j(assemble_np(plan, vals), vals,
@@ -113,7 +113,7 @@ def test_dense_executor_matches_oracle(name):
     oracle: every pool tile, 1e-12 of max|L| (a library Cholesky and
     triangular solve against NumPy's, summed in another order)."""
     _, _, symb_t, opt_t = analysed(name)
-    plan, fp, _ = plans_t(symb_t, opt_t)
+    plan, fp, _ = symb_t.cache.block_plans(symb_t, opt_t)
     vals = symb_t.a_perm.values
     ref = subtree_np(assemble_np(plan, vals), vals, fp)
     pool = assemble_torch(plan, vals, torch.float64, "cpu")
@@ -157,7 +157,7 @@ def test_coarse_matches_plain(name, mode, schedule):
 def poisoned(mat, symb):
     """``mat`` with a negative diagonal entry on the first column of the
     first coarsened subtree (a front that is not positive definite)."""
-    fp = plans_t(symb, symb.options)[1]
+    fp = symb.cache.block_plans(symb, symb.options)[1]
     for b in fp.dense:
         hit = np.flatnonzero(b["asm_r"] == b["asm_c"])
         if len(hit):
@@ -190,7 +190,7 @@ def test_dense_flag_alone_reaches_the_guard():
     """The dense phase's flag is true for a failed front even where the
     NaN front never reaches element [0, 0] of a tile."""
     mat, _, symb, opt_t = analysed("random-80")
-    plan, fp, _ = plans_t(symb, opt_t)
+    plan, fp, _ = symb.cache.block_plans(symb, opt_t)
     bad = poisoned(mat, symb)
     from spllt_tpu_torch.api import _permuted_values
 
@@ -223,11 +223,13 @@ def test_cache_keys_follow_the_coarse_options(schedule):
     assert (sum(b["nsub"] for b in nums[1].fplan.dense)
             != sum(b["nsub"] for b in nums[2].fplan.dense)
             or nums[1].fplan.num_tasks != nums[2].fplan.num_tasks)
-    fex = [v for k, v in symb._cache.items() if k[0] == "fex"]
+    state = symb.cache.device("cpu")
+    fex = list(state.factor_executors.values())
     assert len(fex) == 3 and len({id(e.fp) for e in fex}) == 3
-    dense = [k for k in symb._cache if k[0] == "dense"]
+    dense = list(state.dense_executors.values())
     assert len(dense) == 2
-    assert _dense_key(nums[1].options, torch.device("cpu")) in dense
+    assert symb.cache.dense_executor(symb, nums[1].options, "cpu") in dense
+    assert len(state.dense_executors) == 2
 
 
 @pytest.mark.parametrize("mode,schedule", [("stf", "scan"),
@@ -273,11 +275,12 @@ def test_coarse_default_precision_refines_to_f64(schedule):
     symb = st.analyse(mat, o)
     num = st.factor(symb)
     assert num.fplan.dense and sum(b["nsub"] for b in num.fplan.dense) > 0
-    dense = symb._cache[_dense_key(o, torch.device("cpu"))]
+    dense_executors = num.state.dense_executors
+    (dense,) = dense_executors.values()
     assert isinstance(dense, DenseSubtreeExecutor)
     first = num.pool.clone()
     again = st.factor(symb, mat)
-    assert symb._cache[_dense_key(o, torch.device("cpu"))] is dense
+    assert list(dense_executors.values()) == [dense]
     assert again.pool.dtype == torch.float32
     assert torch.equal(again.pool, first)
     _, b = st.make_rhs(mat, nrhs=2)

@@ -14,7 +14,6 @@ import torch
 
 import spllt_tpu_torch as st
 from spllt_tpu_torch.analyse.ordering import nd_grid_ordering
-from spllt_tpu_torch.api import _VALUES_KEY
 from spllt_tpu_torch.numeric import megakernel, solve_mega
 
 # One intra-op thread: the suite's xdist workers share the host's CPUs,
@@ -116,7 +115,7 @@ def test_refactorization_through_the_value_map():
         assert np.array_equal(num.values_perm, ak.permute(symb.perm).values)
         b = rhs(n, k)
         assert bwd_err(ak.to_scipy(), st.solve(num, b), b) <= 1e-12
-    vm = symb._cache[_VALUES_KEY]
+    vm = symb.cache.value_map
     assert (vm.hits, vm.fallbacks) == (1, 0)
 
 

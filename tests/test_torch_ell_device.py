@@ -11,9 +11,9 @@ import pytest
 import torch
 
 import spllt_tpu_torch as st
-from spllt_tpu_torch.api import _ell_key, _padded_perm, _solve_executor, \
-    _unpermute
+from spllt_tpu_torch.api import _solve_executor
 from spllt_tpu_torch.numeric import spmv
+from spllt_tpu_torch.numeric.solve_executor import refined
 from spllt_tpu_torch.sparse.generators import poisson3d
 
 from test_torch_elasticity import elasticity
@@ -66,13 +66,21 @@ def host_ell(symb, values):
 
 def host_refined(num, b, refine=2):
     """The refined solve on the host-built ELL: ``spmv`` of ``ell_vals``
-    and the int64 indices, fed to the same executor."""
+    and the int64 indices, fed to the same executor and loop."""
     vals, idx = host_ell(num.symb, num.values_perm)
-    bb = np.asarray(b, np.float64).reshape(num.symb.n, -1)
-    ex = _solve_executor(num, bb.shape[1])
-    x = ex.full_refined(num.pool, _padded_perm(num, bb),
-                        lambda x: spmv.spmv(vals, idx, x), refine)
-    return _unpermute(num, x.cpu().numpy()).reshape(np.shape(b))
+    n = num.symb.n
+    b64 = torch.as_tensor(num.padded(np.asarray(b, np.float64).reshape(n,
+                                                                       -1)))
+    ex = _solve_executor(num)
+
+    def residual(x):
+        r = torch.zeros_like(b64)
+        r[:n] = b64[:n] - spmv.spmv(vals, idx, x)
+        return r
+
+    x = refined(lambda r: ex.full(num.pool, r).to(torch.float64), residual,
+                b64, refine)
+    return num.unpadded(x.numpy()).reshape(np.shape(b))
 
 
 def rhs_padded(n, nrhs, seed):
@@ -151,7 +159,7 @@ def test_refactor_loop_uploads_values_once_a_factor(pattern, monkeypatch):
     symb = st.analyse(a, dataclasses.replace(symb0.options, trace=True))
     b = np.random.default_rng(0).standard_normal(a.n)
     st.solve(st.factor(symb, new_values(a, 3)), b)
-    dell = symb._cache[_ell_key(torch.device("cpu"))]
+    dell = symb.cache.device("cpu").ell
     assert (dell.uploads, dell.gathers) == (1, 1)
 
     def refuse(*args):
@@ -185,7 +193,7 @@ def test_two_live_factors_solve_against_their_own_values(pattern):
     nums = [st.factor(symb, new_values(a, 10 + k)) for k in range(2)]
     b = np.random.default_rng(1).standard_normal(a.n)
     xs = [st.solve(nums[0], b)]
-    dell = symb._cache[_ell_key(torch.device("cpu"))]
+    dell = symb.cache.device("cpu").ell
     counts = dell.uploads, dell.gathers
     xs += [st.solve(num, b) for num in nums[1:] + nums]
     assert (dell.uploads - counts[0], dell.gathers - counts[1]) == (1, 3)
@@ -206,7 +214,7 @@ def test_resident_bytes_within_one_factor_of_the_host_ell(pattern):
     a, symb = pattern
     num = st.factor(symb, new_values(a, 20))
     st.solve(num, np.ones(a.n))
-    dell = symb._cache[_ell_key(torch.device("cpu"))]
+    dell = symb.cache.device("cpu").ell
     held = num._ell_values.nbytes
     assert held == 8 * (len(symb.a_perm.rowind) + 1)
     assert held + dell.nbytes <= 16 * a.n * dell.kmax

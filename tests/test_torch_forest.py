@@ -19,8 +19,6 @@ from spllt_tpu.api import _plans as plans_j
 from spllt_tpu.numeric.assemble import assemble_np
 from spllt_tpu.numeric.stf import factorize_np
 from spllt_tpu.parallel import forest as forest_j
-from spllt_tpu_torch.api import _plans as plans_t
-from spllt_tpu_torch.api import _solve_mega_plan
 from spllt_tpu_torch.convert import (numeric_from_numpy, numeric_to_numpy,
                                      shards_from_numpy, shards_to_numpy)
 from spllt_tpu_torch.parallel import device_list
@@ -49,7 +47,7 @@ def problem(ndev: int):
                                              splan=splan_j)
     symb_t = st.analyse(st.poisson2d(M),
                         st.Options(ndevices=ndev, device="cpu", **KW))
-    plan_t, fplan_t, splan_t = plans_t(symb_t, symb_t.options)
+    plan_t, fplan_t, splan_t = symb_t.cache.block_plans(symb_t, symb_t.options)
     md_t = forest_t.build_multidevice_factor(symb_t, plan_t, fplan_t, ndev,
                                              splan=splan_t)
     return (symb_j, plan_j, fplan_j, md_j), (symb_t, plan_t, fplan_t, md_t)
@@ -187,7 +185,7 @@ def test_mega_solve_streams_equal_reference(ndev):
     group = 2
     smp, fwd, fwd_top, bwd, bwd_top = build_device_solve_mega_streams(
         md_j, symb_j, plan_j, group)
-    runs = split_solve_runs(md_t, _solve_mega_plan(symb_t, plan_t))
+    runs = split_solve_runs(md_t, symb_t.cache.stream_plan(symb_t, plan_t))
     ws = smp.P - md_j.nb
     for dirn, per_j, top_j in (("fwd", fwd, fwd_top), ("bwd", bwd, bwd_top)):
         per_t, top_t = runs[dirn]
@@ -341,7 +339,8 @@ def test_coarse_subtrees_off_across_devices():
     symb = problem(2)[1][0]
     num = st.factor(symb, options=options(2, coarse_subtrees=True))
     assert num.fplan.dense is None
-    assert not [k for k in symb._cache if k[0] == "dense"]
+    assert not any(state.dense_executors
+                   for state in symb.cache.devices.values())
     plain = st.factor(symb, options=options(2))
     for p, q in zip(num.pool, plain.pool):
         assert torch.equal(p, q)

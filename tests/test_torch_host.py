@@ -16,7 +16,6 @@ from spllt_tpu.api import _plans as plans_j
 from spllt_tpu.numeric import assemble as asm_j
 from spllt_tpu.numeric import spmv as spmv_j
 from spllt_tpu.numeric.pallas_update import build_micro_tasks as bmt_j
-from spllt_tpu_torch.api import _plans as plans_t
 from spllt_tpu_torch.numeric import assemble as asm_t
 from spllt_tpu_torch.numeric import spmv as spmv_t
 from spllt_tpu_torch.numeric.hopper_update import (build_micro_tasks as bmt_t,
@@ -94,7 +93,7 @@ def test_analyse_and_plans_equal_reference(ordering):
     symb_t = st.analyse(st.poisson2d(12), st.Options(device="cpu", **kw))
     assert_same(symb_j, symb_t, "symb")
     for pj, pt, nm in zip(plans_j(symb_j, symb_j.options),
-                          plans_t(symb_t, symb_t.options),
+                          symb_t.cache.block_plans(symb_t, symb_t.options),
                           ("plan", "fplan", "splan")):
         assert_same(pj, pt, nm)
 
@@ -105,7 +104,7 @@ def test_host_copies_equal_reference():
     symb_j = sj.analyse(sj.poisson2d(12), sj.Options(**kw))
     symb_t = st.analyse(st.poisson2d(12), st.Options(device="cpu", **kw))
     plan_j, fplan_j, _ = plans_j(symb_j, symb_j.options)
-    plan_t, fplan_t, _ = plans_t(symb_t, symb_t.options)
+    plan_t, fplan_t, _ = symb_t.cache.block_plans(symb_t, symb_t.options)
     rows = (plan_t.nblocks + 1) * 8
     poolf = st.factor(symb_t, options=st.Options(
         mode="stf", **kw)).pool.reshape(-1, 8)

@@ -126,7 +126,7 @@ def test_port_stf_factor_solves_in_reference(tmp_path):
                                             ("mega", "float64")])
 def test_batched_checkpoint_reloads_bit_for_bit(tmp_path, schedule, dtype):
     """save_factor → load_factor onto the device asked for: the pool in its
-    own dtype, the symbolic object's solve-executor cache shared as factor
+    own dtype, the symbolic object's per-device state shared as factor
     shares it, the solve bit for bit the original factor's; a refactorize
     of load_symbolic's object equals the original factor bit for bit."""
     a, symb = analysed(st, mode="batched", schedule=schedule, dtype=dtype,
@@ -140,8 +140,9 @@ def test_batched_checkpoint_reloads_bit_for_bit(tmp_path, schedule, dtype):
     assert torch.equal(num2.pool, num.pool)
     xt, b = st.make_rhs(a, nrhs=3)
     np.testing.assert_array_equal(st.solve(num2, b), st.solve(num, b))
-    assert num2._solve_execs is next(
-        v for k, v in num2.symb._cache.items() if k[0] == "sex")
+    assert num2.state is num2.symb.cache.device("cpu")
+    assert len(num2.state.solve_executors) == 1
+    assert st.factor(num2.symb).state is num2.state
     symb2 = persist_t.load_symbolic(p + ".symb.npz", device="cpu")
     assert torch.equal(st.factor(symb2).pool, num.pool)
 
@@ -157,3 +158,36 @@ def test_loaders_default_to_the_card(tmp_path):
     assert persist_t.load_symbolic(p + ".symb.npz").options.device is None
     with pytest.raises(RuntimeError, match="cuda"):
         persist_t.load_factor(p)
+
+
+def test_factor_convert_and_load_share_the_device_state(tmp_path):
+    """``factor``, ``numeric_from_numpy`` and ``load_factor`` build their
+    factors through one constructor: the same ``inform``, and the pattern's
+    per-device state (executors, the refined solve's ELL) shared with every
+    other factor of the same symbolic object, so a solve of any of them
+    builds nothing twice and returns the same bits."""
+    from spllt_tpu_torch.convert import numeric_from_numpy, numeric_to_numpy
+
+    a, symb = analysed(st, mode="batched", schedule="mega",
+                       dtype="float32", device="cpu")
+    num = st.factor(symb)
+    xt, b = st.make_rhs(a, nrhs=2)
+    x = st.solve(num, b)
+    state = num.state
+    assert state is symb.cache.device("cpu") and state.ell is not None
+    solvers = dict(state.solve_executors)
+    num_c = numeric_from_numpy(symb, *numeric_to_numpy(num))
+    assert num_c.state is state and num_c.inform == num.inform
+    np.testing.assert_array_equal(st.solve(num_c, b), x)
+    assert state.solve_executors == solvers
+    p = str(tmp_path / "fact.npz")
+    persist_t.save_factor(p, num)
+    num_l = persist_t.load_factor(p, device="cpu")
+    assert num_l.inform == num.inform
+    np.testing.assert_array_equal(st.solve(num_l, b), x)
+    again = st.factor(num_l.symb)
+    assert again.state is num_l.state is num_l.symb.cache.device("cpu")
+    solvers, ell = dict(num_l.state.solve_executors), num_l.state.ell
+    np.testing.assert_array_equal(st.solve(again, b), x)
+    assert num_l.state.solve_executors == solvers and len(solvers) == 1
+    assert num_l.state.ell is ell

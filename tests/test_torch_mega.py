@@ -25,14 +25,14 @@ from spllt_tpu.numeric import megakernel as mk_j
 from spllt_tpu.numeric.solve import solve_bwd_np, solve_fwd_np
 from spllt_tpu.numeric.stf import factorize_np
 from spllt_tpu.plan.solve_mega import build_solve_mega_plan as bsmp_j
-from spllt_tpu_torch.api import _VALUES_KEY, ValueMap
-from spllt_tpu_torch.api import _plans as plans_t
+from spllt_tpu_torch.api import ValueMap
 from spllt_tpu_torch.convert import numeric_from_numpy, numeric_to_numpy
 from spllt_tpu_torch.numeric import hopper_update as hu_t
 from spllt_tpu_torch.numeric import megakernel as mk_t
 from spllt_tpu_torch.numeric import solve_mega as sm_t
 from spllt_tpu_torch.numeric.assemble import assemble_np, assemble_torch
 from spllt_tpu_torch.plan.solve_mega import build_solve_mega_plan as bsmp_t
+from test_torch_slice import cache_ids
 
 # One intra-op thread: the suite's xdist workers share the host's CPUs,
 # and with a thread per CPU each small op waits on a thread barrier.
@@ -77,7 +77,7 @@ def host(request):
     symb_j = sj.analyse(aj, sj.Options(mode="stf", prune_tree=False, **kw))
     symb_t = st.analyse(at, st.Options(device="cpu", prune_tree=False, **kw))
     plan_j, fplan_j, splan_j = plans_j(symb_j, symb_j.options)
-    plan_t, fplan_t, splan_t = plans_t(symb_t, symb_t.options)
+    plan_t, fplan_t, splan_t = symb_t.cache.block_plans(symb_t, symb_t.options)
     vals = symb_t.a_perm.values
     oracle = factorize_np(assemble_np(plan_t, vals, dtype=np.float64),
                           fplan_j)
@@ -183,7 +183,8 @@ def test_mega_solve_executor_equals_oracle(host, dtype, nrhs):
     n = host["symb_t"].n
     pool = np.concatenate([host["oracle"][:host["plan_t"].nblocks],
                            np.zeros((1,) + host["oracle"].shape[1:])])
-    ex = sm_t.MegaSolveExecutor(host["symb_t"], host["plan_t"], nrhs,
+    ex = sm_t.MegaSolveExecutor(host["symb_t"], host["plan_t"],
+                                bsmp_t(host["symb_t"], host["plan_t"]),
                                 dtype=dtype, device="cpu")
     x = np.zeros((n + 1, nrhs))
     x[:n] = np.random.default_rng(3).standard_normal((n, nrhs))
@@ -456,11 +457,15 @@ def case(request):
                 symb_t=symb_t, num_t64=num_t64, num_t32=num_t32)
 
 
-def executors(symb, num):
-    fex = [v for k, v in symb._cache.items()
-           if k[0] == "fex" and k[3] == num.options.dtype]
-    return [type(v).__name__ for v in fex], \
-        sorted({type(v).__name__ for v in num._solve_execs.values()})
+def executors(num):
+    """The class names of the factor executors and of the solve executors
+    of ``num``'s pool dtype on its device."""
+    def names(execs):
+        return [type(e).__name__ for e in execs.values()
+                if e.dtype == num.pool.dtype]
+
+    return (names(num.state.factor_executors),
+            sorted(set(names(num.state.solve_executors))))
 
 
 def test_api_mega_factor_pools(case):
@@ -471,7 +476,7 @@ def test_api_mega_factor_pools(case):
     got = case["num_t64"].pool
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float64
     assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
-    assert executors(case["symb_t"], case["num_t64"])[0] == \
+    assert executors(case["num_t64"])[0] == \
         ["MegaFactorExecutor"]
     num_j32 = sj.factor(sj.analyse(case["aj"], sj.Options(
         mode="batched", schedule="scan", dtype="float32",
@@ -483,17 +488,17 @@ def test_api_mega_factor_pools(case):
     # 'mega' and the level executors do not share a cache slot; 'scan' and
     # 'unrolled' do
     symb = case["symb_t"]
-    before = set(symb._cache)
+    before = cache_ids(symb)
     n_scan = st.factor(symb, options=dataclasses.replace(
         symb.options, schedule="scan"))
-    new = set(symb._cache) - before
-    assert {k[0] for k in new} == {"fex", "sex"}
-    assert all(type(symb._cache[k]).__name__ == "ScanFactorExecutor"
-               for k in new if k[0] == "fex")
-    keys = set(symb._cache)
+    (new,) = set(cache_ids(symb)) - set(before)
+    assert new[1] == "factor_executors"
+    assert type(n_scan.state.factor_executors[new[2]]).__name__ == \
+        "ScanFactorExecutor"
+    keys = cache_ids(symb)
     st.factor(symb, options=dataclasses.replace(symb.options,
                                                 schedule="unrolled"))
-    assert set(symb._cache) == keys
+    assert cache_ids(symb) == keys
     assert np.abs(n_scan.pool.numpy() - ref).max() <= \
         1e-12 * np.abs(ref).max()
 
@@ -522,7 +527,7 @@ def test_api_mega_solve_jobs_match_reference(case, job, nrhs):
     assert got.shape == b.shape and got.dtype == np.float64
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=1e-10 * max(1.0, np.abs(ref).max()))
-    assert executors(case["symb_t"], case["num_t64"])[1] == \
+    assert executors(case["num_t64"])[1] == \
         ["MegaSolveExecutor"]
 
 
@@ -539,7 +544,7 @@ def test_api_mega_refined_solve(case, nrhs):
     ref = sj.solve(case["num_j"], b)
     np.testing.assert_allclose(x, ref, rtol=0,
                                atol=1e-11 * np.abs(ref).max())
-    assert executors(case["symb_t"], case["num_t32"]) == \
+    assert executors(case["num_t32"]) == \
         (["MegaFactorExecutor"], ["MegaSolveExecutor"])
     x0 = st.solve(case["num_t32"], b, refine=0)
     x12 = st.solve(case["num_t32"], st.solve(case["num_t32"], b, job=1),
@@ -553,13 +558,11 @@ def test_api_mega_refactorize_reuses_streams_and_executors(case):
     b = rhs(a, 3, seed=9)
     st.solve(num, b)                       # the solve plan and executor exist
 
-    def cache_ids():
-        return {k: id(v) for k, v in symb._cache.items() if k != _VALUES_KEY}
-
-    before = cache_ids()
-    assert ("smplan", num.plan.nb) in symb._cache
-    fex = next(v for k, v in symb._cache.items()
-               if k[0] == "fex" and k[1] == "mega" and k[3] == "float32")
+    before = cache_ids(symb)
+    assert num.plan.nb in symb.cache.stream_plans
+    (fex,) = (e for e in num.state.factor_executors.values()
+              if isinstance(e, mk_t.MegaFactorExecutor)
+              and e.dtype == torch.float32)
     stream_id = id(fex.stream)
     rng = np.random.default_rng(3)
     diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
@@ -567,16 +570,16 @@ def test_api_mega_refactorize_reuses_streams_and_executors(case):
     vals[diag] = a.values[diag] * 1.5
     a2 = st.CscMatrix(a.n, a.colptr, a.rowind, vals)
     num2 = st.factor(symb, a2, options=num.options)
-    ex_before = dict(num._solve_execs)
+    ex_before = dict(num.state.solve_executors)
     assert bwd_err(a2, st.solve(num2, b), b) <= BWD_ERR
-    # the one entry a refactorization may add is the pattern's value map
-    assert cache_ids() == before
-    assert isinstance(symb._cache[_VALUES_KEY], ValueMap)
+    # the one member a refactorization may add is the pattern's value map
+    assert cache_ids(symb) == before
+    assert isinstance(symb.cache.value_map, ValueMap)
     assert id(fex.stream) == stream_id
     assert num2.plan is num.plan and num2.fplan is num.fplan
-    assert num2._solve_execs is num._solve_execs
+    assert num2.state is num.state
     for k, ex in ex_before.items():
-        assert num2._solve_execs[k] is ex
+        assert num2.state.solve_executors[k] is ex
     xj = sj.solve(sj.factor(case["num_j"].symb,
                             sj.CscMatrix(a.n, a.colptr, a.rowind, vals)), b)
     np.testing.assert_allclose(st.solve(num2, b), xj, rtol=0,
@@ -622,7 +625,7 @@ def test_api_mega_convert_round_trip(case):
     x_c = st.solve(num_c, b, refine=0)
     np.testing.assert_allclose(x_c, x_ref, rtol=0,
                                atol=1e-12 * np.abs(x_ref).max())
-    assert type(num_c._solve_execs[(3,)]).__name__ == "MegaSolveExecutor"
+    assert executors(num_c)[1] == ["MegaSolveExecutor"]
     assert bwd_err(case["at"], st.solve(num_c, b), b) <= BWD_ERR
 
 
@@ -641,7 +644,7 @@ def test_cuda_stream_kernels_match_plain_versions():
     a = st.poisson3d(8)
     symb = st.analyse(a, st.Options(ordering="nd-grid", grid_shape=(8, 8, 8),
                                     nb=128, nemin=192))
-    plan, fplan, _ = plans_t(symb, symb.options)
+    plan, fplan, _ = symb.cache.block_plans(symb, symb.options)
     rows = (plan.nblocks + 1) * 128
     smp = bsmp_t(symb, plan)
     stream = mk_t.stream_to_device(mk_t.build_mega_stream(fplan, rows),

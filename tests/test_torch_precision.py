@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import spllt_tpu_torch as st
-from spllt_tpu_torch.api import _plans as plans_t
 from spllt_tpu_torch.numeric import hopper_update as hu
 from spllt_tpu_torch.numeric import megakernel as mk
 from spllt_tpu_torch.numeric.assemble import assemble_np
@@ -217,7 +216,7 @@ def p2d16():
     a = st.poisson2d(16)
     symb = st.analyse(a, st.Options(device="cpu", **kw))
     symb_j = sj.analyse(sj.poisson2d(16), sj.Options(mode="stf", **kw))
-    plan_t, _, _ = plans_t(symb, symb.options)
+    plan_t, _, _ = symb.cache.block_plans(symb, symb.options)
     _, fplan_j, _ = plans_j(symb_j, symb_j.options)
     oracle = factorize_np(assemble_np(plan_t, symb.a_perm.values,
                                       dtype=np.float64), fplan_j)
@@ -278,16 +277,14 @@ def test_precisions_get_distinct_cached_executors(p2d16):
         kw = dict(device="cpu", schedule=schedule, **p2d16["kw"])
         st.factor(symb, options=st.Options(precision="highest", **kw))
         st.factor(symb, options=st.Options(precision="default", **kw))
-        fam = "mega" if schedule == "mega" else "level"
-        fex = {k[4]: v for k, v in symb._cache.items()
-               if k[0] == "fex" and k[1] == fam}
-        assert set(fex) == {"highest", "default"}
-        assert fex["highest"] is not fex["default"]
-        assert {p: e.precision for p, e in fex.items()} == \
-            {"highest": "highest", "default": "default"}
-        before = dict(symb._cache)
+        cls = "MegaFactorExecutor" if schedule == "mega" \
+            else "ScanFactorExecutor"
+        execs = symb.cache.device("cpu").factor_executors
+        fex = [e for e in execs.values() if type(e).__name__ == cls]
+        assert sorted(e.precision for e in fex) == ["default", "highest"]
+        before = dict(execs)
         st.factor(symb, options=st.Options(precision="default", **kw))
-        assert all(symb._cache[k] is v for k, v in before.items())
+        assert execs == before
 
 
 @pytest.mark.parametrize("schedule", ["scan", "mega"])

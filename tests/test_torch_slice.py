@@ -10,7 +10,7 @@ import torch
 
 import spllt_tpu as sj
 import spllt_tpu_torch as st
-from spllt_tpu_torch.api import _VALUES_KEY, ValueMap
+from spllt_tpu_torch.api import ValueMap
 from spllt_tpu_torch.convert import numeric_from_numpy, numeric_to_numpy
 from spllt_tpu_torch.utils import timers
 
@@ -197,31 +197,44 @@ def test_cuda_scan_factor_ignores_global_tf32():
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
+def cache_ids(symb):
+    """Each object the pattern's cache holds, by where it sits, as its id;
+    the value map left out."""
+    c = symb.cache
+    out = {}
+    for name, m in (("plans", c.plans), ("stream", c.stream_plans),
+                    ("forest", c.forest_plans)):
+        out.update({(name, k): id(v) for k, v in m.items()})
+    for dev, state in c.devices.items():
+        for f in dataclasses.fields(state):
+            m = getattr(state, f.name)
+            out.update({(dev, f.name, k): id(v) for k, v in m.items()}
+                       if isinstance(m, dict) else {(dev, f.name): id(m)})
+    return out
+
+
 def test_refactorize_reuses_cached_plans_and_executors(case):
     symb, a = case["symb_t"], case["at"]
     num = case["num_t32"]
 
-    def cache_ids():
-        return {k: id(v) for k, v in symb._cache.items() if k != _VALUES_KEY}
-
-    before = cache_ids()
+    before = cache_ids(symb)
     rng = np.random.default_rng(3)
     diag = a.rowind == np.repeat(np.arange(a.n), np.diff(a.colptr))
     vals = a.values * (1.0 + 0.2 * rng.random(a.values.shape))
     vals[diag] = a.values[diag] * 1.5
     a2 = st.CscMatrix(a.n, a.colptr, a.rowind, vals)
     num2 = st.factor(symb, a2, options=num.options)
-    # the one entry a refactorization may add is the pattern's value map
-    assert cache_ids() == before
-    assert isinstance(symb._cache[_VALUES_KEY], ValueMap)
+    # the one member a refactorization may add is the pattern's value map
+    assert cache_ids(symb) == before
+    assert isinstance(symb.cache.value_map, ValueMap)
     assert num2.plan is num.plan and num2.fplan is num.fplan
     assert num2.splan is num.splan
-    assert num2._solve_execs is num._solve_execs
+    assert num2.state is num.state
     b = rhs(a, 3, seed=9)
-    ex_before = dict(num._solve_execs)
+    ex_before = dict(num.state.solve_executors)
     assert bwd_err(a2, st.solve(num2, b), b) <= BWD_ERR
     for k, ex in ex_before.items():
-        assert num2._solve_execs[k] is ex
+        assert num2.state.solve_executors[k] is ex
     # the reference on the same new values agrees
     xj = sj.solve(sj.factor(case["num_j"].symb,
                             sj.CscMatrix(a.n, a.colptr, a.rowind, vals)), b)
@@ -274,7 +287,7 @@ def test_refactorize_gathers_through_the_value_map(grid, mode):
         else:
             assert torch.equal(num.pool, ref.pool)
         mats.append(ak)
-    vm = symb._cache[_VALUES_KEY]
+    vm = symb.cache.value_map
     assert (vm.hits, vm.fallbacks) == (2, 0)
     assert "factor.values" in timers.print_timers()
     timers.reset_timers()
@@ -347,3 +360,26 @@ def test_convert_round_trip(case):
     # a pool of the wrong shape is refused
     with pytest.raises(ValueError):
         numeric_from_numpy(case["symb_t"], pool_np[:-1], vals)
+
+
+@pytest.mark.parametrize("schedule", ["scan", "mega"])
+def test_one_solve_executor_serves_every_nrhs(schedule):
+    """The solve executor is cached per pattern, device and pool dtype, not
+    per nrhs: solves of 1 and 4 right-hand sides, each job, run on one
+    executor and agree with the stf oracle's."""
+    a = st.poisson2d(12)
+    kw = dict(device="cpu", nb=8, ordering="nd-grid", grid_shape=(12, 12),
+              dtype="float64")
+    num = st.factor(st.analyse(a, st.Options(schedule=schedule, **kw)))
+    oracle = st.factor(st.analyse(a, st.Options(mode="stf", **kw)))
+    rng = np.random.default_rng(5)
+    for nrhs in (1, 4):
+        b = rng.standard_normal((a.n, nrhs))
+        for job in (0, 1, 2):
+            x = st.solve(num, b, job=job, refine=0)
+            ref = st.solve(oracle, b, job=job, refine=0)
+            np.testing.assert_allclose(x, ref, rtol=0,
+                                       atol=1e-12 * np.abs(ref).max())
+    (ex,) = num.state.solve_executors.values()
+    assert type(ex).__name__ == ("MegaSolveExecutor" if schedule == "mega"
+                                 else "ScanSolveExecutor")

@@ -22,7 +22,6 @@ import spllt_tpu_torch as st
 from spllt_tpu.api import _plans as plans_j
 from spllt_tpu.numeric import megakernel as mk_j
 from spllt_tpu.numeric.stf import factorize_np
-from spllt_tpu_torch.api import _plans as plans_t
 from spllt_tpu_torch.numeric import hopper_update as hu_t
 from spllt_tpu_torch.numeric import megakernel as mk_t
 from spllt_tpu_torch.numeric.assemble import assemble_np
@@ -43,7 +42,7 @@ def p2d12(request):
     aj, at = sj.poisson2d(12), st.poisson2d(12)
     symb_j = sj.analyse(aj, sj.Options(mode="stf", prune_tree=False, **kw))
     symb_t = st.analyse(at, st.Options(device="cpu", prune_tree=False, **kw))
-    plan_t, fplan_t, _ = plans_t(symb_t, symb_t.options)
+    plan_t, fplan_t, _ = symb_t.cache.block_plans(symb_t, symb_t.options)
     _, fplan_j, _ = plans_j(symb_j, symb_j.options)
     rows = (fplan_t.nblocks + 1) * nb
     return dict(nb=nb, symb_t=symb_t, plan_t=plan_t, fplan_t=fplan_t,
