@@ -60,7 +60,9 @@ class NumericFactor:
     fplan: FactorPlan
     splan: SolvePlan
     pool: object                 # np.ndarray (stf) or torch.Tensor (batched)
-    values_perm: np.ndarray      # permuted values actually factored
+    # the values factored, in the analysed order (:attr:`values_perm`);
+    # None where only ``_ell_values`` holds them
+    _values_perm: np.ndarray | None
     options: Options
     inform: Inform
     # the forest path (Options.ndevices > 1): its ForestExecutor; ``pool``
@@ -70,7 +72,8 @@ class NumericFactor:
     # factor of the pattern there; None for an stf pool and the forest
     state: DeviceState | None = None
     # values_perm on the pool's device, float64 [nnz(A) + 1]
-    # (numeric/spmv.DeviceEll.values), uploaded by the first refined solve
+    # (numeric/spmv.device_values): the assembly's, kept by factor; for a
+    # factor made from host arrays, uploaded by its first refined solve
     _ell_values: object | None = None
     # parallel/rhs.solve_rhs_sharded's copies of the pool: device -> pool
     rhs_pools: dict = dataclasses.field(default_factory=dict)
@@ -81,6 +84,16 @@ class NumericFactor:
     @property
     def mode(self) -> str:
         return self.options.mode
+
+    @property
+    def values_perm(self) -> np.ndarray:
+        """The permuted values actually factored.  Where ``factor`` put
+        them in order on the device, copied from there (float64) the first
+        time it is read."""
+        if self._values_perm is None:
+            self._values_perm = self._ell_values[:-1].to(
+                "cpu", copy=True).numpy()
+        return self._values_perm
 
     @property
     def trace_log(self):
@@ -113,19 +126,24 @@ class NumericFactor:
 
 
 def numeric_factor(symb: SymbolicFactor, options: Options, pool,
-                   values_perm: np.ndarray, mdf=None) -> NumericFactor:
+                   values_perm: np.ndarray | None, mdf=None,
+                   ell_values=None) -> NumericFactor:
     """The one constructor of :class:`NumericFactor`: the plans of (symb,
     options), ``inform`` with their counts, and the pattern's state on the
-    pool's device."""
+    pool's device.  ``values_perm`` may be None where ``ell_values``, the
+    factor's device values, holds them."""
     plan, fplan, splan = symb.cache.block_plans(symb, options)
     inform = dataclasses.replace(symb.inform, num_blocks=plan.nblocks,
                                  num_levels=fplan.nlevels,
                                  num_tasks=fplan.num_tasks)
     state = (symb.cache.device(pool.device)
              if isinstance(pool, torch.Tensor) else None)
+    if values_perm is not None:
+        values_perm = np.asarray(values_perm)
     return NumericFactor(symb=symb, plan=plan, fplan=fplan, splan=splan,
-                         pool=pool, values_perm=np.asarray(values_perm),
-                         options=options, inform=inform, mdf=mdf, state=state)
+                         pool=pool, _values_perm=values_perm,
+                         options=options, inform=inform, mdf=mdf, state=state,
+                         _ell_values=ell_values)
 
 
 def _diag(options: Options, name: str, flops: float = 0.0, sync=None):
@@ -178,10 +196,12 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
     (the akeep-reuse workflow of the reference).  The first such matrix
     builds the pattern's value map (:class:`ValueMap`, in ``symb.cache``);
     every later matrix whose ``colptr`` and ``rowind`` equal that one's by
-    value takes its values through the map in one gather.  Any other
-    pattern takes the full symmetric permutation and its check, which
-    raises ``ValueError`` unless the permuted pattern is the analysed one.
-    Either way the values factored are the same, bit for bit.
+    value takes its values through the map in one gather, on the pool's
+    device on the single-device batched path (its values cross once, in
+    the user's order).  Any other pattern takes the full symmetric
+    permutation and its check, which raises ``ValueError`` unless the
+    permuted pattern is the analysed one.  Either way the values factored
+    are the same, bit for bit.
     ``devices``, for the forest path only, replaces the device rule by an
     explicit list of ``options.ndevices`` torch devices (a device may
     repeat: its shards then run one after the other there)."""
@@ -197,8 +217,9 @@ def factor(symb: SymbolicFactor, a: CscMatrix | None = None,
 
 def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
                  options: Options, devices=None) -> NumericFactor:
+    on_device = options.mode == "batched" and not forest_run(options)
     values = (symb.a_perm.values if a is None
-              else _permuted_values(symb, a, options))
+              else _permuted_values(symb, a, options, on_device))
     cache = symb.cache
     plan, fplan, _ = cache.block_plans(symb, options)
     if forest_run(options):
@@ -219,13 +240,17 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
             pool = subtree_np(pool, np.asarray(values, np.float64), fplan)
         return numeric_factor(symb, options, factorize_np(pool, fplan),
                               values)
-    from .numeric.assemble import assemble_torch, assemble_upload_bytes
+    from .numeric.assemble import assemble_upload_bytes
 
     dev = resolve_device(options)
     ex = cache.factor_executor(symb, options, dev)
+    amap = cache.assembly_map(symb, options, dev)
     with _diag(options, "factor.assemble", sync=dev) as args:
-        pool = assemble_torch(plan, values, ex.dtype, dev)
-        args.update(nnz=len(plan.asm_rowflat),
+        # the factor's values on the device, kept for its residuals
+        ell_values = (amap.gather(a.values) if values is None
+                      else amap.values(values))
+        pool = amap.scatter(ell_values, ex.dtype)
+        args.update(nnz=amap.nnz, path="gather" if values is None else "host",
                     h2d_bytes=assemble_upload_bytes(plan))
     dense_bad = None
     if fplan.dense:
@@ -237,7 +262,7 @@ def _factor_impl(symb: SymbolicFactor, a: CscMatrix | None,
     # crosses; this is also the synchronisation point of the factor)
     if bool(notpos):
         raise NotPositiveDefiniteError()
-    return numeric_factor(symb, options, pool, values)
+    return numeric_factor(symb, options, pool, values, ell_values=ell_values)
 
 
 @dataclasses.dataclass
@@ -267,19 +292,21 @@ class ValueMap:
                                                               copy=False)
 
 
-def _permuted_values(symb: SymbolicFactor, a: CscMatrix,
-                     options: Options) -> np.ndarray:
+def _permuted_values(symb: SymbolicFactor, a: CscMatrix, options: Options,
+                     on_device: bool = False) -> np.ndarray | None:
     """Values of a new matrix with the analysed pattern, in the analysed
     order: one gather through the cached ValueMap when ``a``'s pattern
     arrays equal those it was built from, else the full permutation and
-    its pattern check.  Both give the same values, bit for bit."""
+    its pattern check.  Both give the same values, bit for bit.  With
+    ``on_device`` the gather is left to the caller, on the device
+    (``numeric.assemble.AssemblyMap.gather``): None is returned."""
     vm = symb.cache.value_map
     with _diag(options, "factor.values") as args:
         args["nnz"] = len(a.rowind)
         if vm is not None and vm.matches(a):
             vm.hits += 1
             args["path"] = "gather"
-            return vm.gather(a)
+            return None if on_device else vm.gather(a)
         args["path"] = "permute"
         if vm is not None:
             vm.fallbacks += 1
@@ -346,8 +373,9 @@ def _solve_refined_device(num: NumericFactor, bb: np.ndarray,
                           refine: int) -> np.ndarray:
     """Refined solve on the pool's device: solves in the pool dtype,
     float64 ELL-SpMV residuals (numeric/spmv.py) and sum.  The ELL pattern
-    is uploaded once per pattern and device, the factor's values once per
-    factor; each residual gathers the ELL values from them on the
+    is uploaded once per pattern and device; the factor's values are on the
+    device from its assembly (uploaded here, once, for a factor made from
+    host arrays); each residual gathers the ELL values from them on the
     device."""
     symb = num.symb
     with _diag(num.options, "solve.ell", sync=num.pool.device) as args:

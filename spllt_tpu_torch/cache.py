@@ -96,9 +96,11 @@ class DeviceState:
     nb and coarse layer (both schedules share it); a solve executor by its
     class, nb and pool dtype (one serves every nrhs); a forest executor,
     kept on its first device, by its classes, nb, dtype, precision and
-    devices.  ``ell`` is the refined solve's ``numeric.spmv.DeviceEll``."""
+    devices.  ``assembly`` holds a ``numeric.assemble.AssemblyMap`` a nb;
+    ``ell`` is the refined solve's ``numeric.spmv.DeviceEll``."""
 
     device: torch.device
+    assembly: dict = dataclasses.field(default_factory=dict)
     factor_executors: dict = dataclasses.field(default_factory=dict)
     dense_executors: dict = dataclasses.field(default_factory=dict)
     solve_executors: dict = dataclasses.field(default_factory=dict)
@@ -162,6 +164,19 @@ class PatternCache:
             lambda: cls(self.block_plans(symb, options)[1],
                         dtype=torch_dtype(options),
                         matmul_precision=options.precision, device=dev))
+
+    def assembly_map(self, symb, options, dev):
+        """The ``numeric.assemble.AssemblyMap`` of ``options.nb`` on
+        ``dev``, with the value map's positions once there is a value
+        map."""
+        from .numeric.assemble import AssemblyMap
+
+        plan = self.block_plans(symb, options)[0]
+        amap = _cached(self.device(dev).assembly, plan.nb,
+                       lambda: AssemblyMap.build(plan, dev))
+        if amap.pos is None and self.value_map is not None:
+            amap.add_positions(self.value_map.pos)
+        return amap
 
     def dense_executor(self, symb, options, dev):
         """The dense phase's executor (``coarse_subtrees=True``)."""

@@ -12,11 +12,13 @@ ELL layout: for row i of the FULL (symmetrized) permuted pattern,
 kept zero) and ``vals[i, :]`` the float64 values (padded with 0).
 
 On the device the layout is split (:class:`DeviceEll`): the pattern's
-``idx`` and ``src`` are uploaded once per pattern and device, each factor
-uploads its nnz(A) lower-CSC values once, and each product forms ``vals``
-from them by one gather through ``src``, equal to :func:`ell_vals` bit for
-bit.  Resident for one factor: 8·n·kmax + 8·(nnz + 1) bytes, never more
-than an [n, kmax] float64 and int64 pair.
+``idx`` and ``src`` are uploaded once per pattern and device, each factor's
+nnz(A) lower-CSC values are on the device once (kept by ``api.factor``
+from its assembly, or uploaded by :meth:`DeviceEll.values` for a factor
+made from host arrays), and each product forms ``vals`` from them by one
+gather through ``src``, equal to :func:`ell_vals` bit for bit.  Resident
+for one factor: 8·n·kmax + 8·(nnz + 1) bytes, never more than an
+[n, kmax] float64 and int64 pair.
 """
 
 from __future__ import annotations
@@ -26,10 +28,28 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["EllMatrix", "DeviceEll", "build_ell", "ell_vals", "spmv"]
+__all__ = ["EllMatrix", "DeviceEll", "build_ell", "ell_vals", "spmv",
+           "index_dtype", "device_values"]
 
-# DeviceEll.src is int32 while nnz(A) + 1 is below this, else int64
+# an index tensor on the device (DeviceEll.src, the assembly map's pos and
+# dst) is int32 while what it indexes has fewer elements than this, else
+# int64
 SRC_INT32_LIMIT = 2 ** 31
+
+
+def index_dtype(count: int) -> type:
+    """The NumPy dtype of indices into ``count`` elements."""
+    return np.int32 if count < SRC_INT32_LIMIT else np.int64
+
+
+def device_values(values: np.ndarray, device) -> torch.Tensor:
+    """float64 [nnz + 1] on ``device``: ``values`` (the lower-CSC values of
+    a factor, in the analysed order) and a zero for the ELL's pads."""
+    nnz = len(values)
+    out = torch.empty(nnz + 1, dtype=torch.float64, device=device)
+    out[:nnz].copy_(torch.as_tensor(np.asarray(values, dtype=np.float64)))
+    out[nnz:].zero_()
+    return out
 
 
 @dataclasses.dataclass
@@ -88,8 +108,9 @@ class DeviceEll:
     """The ELL pattern of one matrix pattern on one device, shared by every
     factor of it: ``idx`` as :class:`EllMatrix` has it, and ``src``, the
     slots' positions in a factor's device values (pads at nnz(A), the zero
-    :meth:`values` appends).  ``uploads`` counts the value arrays sent to
-    the device, ``gathers`` the residual operators made from them."""
+    :func:`device_values` appends).  ``uploads`` counts the value arrays
+    :meth:`values` sent to the device, ``gathers`` the residual operators
+    made from them."""
 
     idx: torch.Tensor            # int32 [n, kmax], pad n
     src: torch.Tensor            # int32 (int64 from 2**31) [n, kmax], pad nnz
@@ -99,8 +120,8 @@ class DeviceEll:
 
     @classmethod
     def upload(cls, ell: EllMatrix, nnz: int, device) -> "DeviceEll":
-        dtype = np.int32 if nnz + 1 < SRC_INT32_LIMIT else np.int64
-        src = np.where(ell.src >= 0, ell.src, nnz).astype(dtype)
+        src = np.where(ell.src >= 0, ell.src, nnz).astype(
+            index_dtype(nnz + 1))
         return cls(idx=torch.as_tensor(ell.idx, device=device),
                    src=torch.as_tensor(src, device=device), nnz=nnz)
 
@@ -113,23 +134,19 @@ class DeviceEll:
         return self.idx.nbytes + self.src.nbytes
 
     def values(self, values: np.ndarray) -> torch.Tensor:
-        """float64 [nnz + 1] on the device: ``values`` (the lower-CSC
-        values of a factor) and a zero for the pads."""
-        out = torch.empty(self.nnz + 1, dtype=torch.float64,
-                          device=self.idx.device)
-        out[:self.nnz].copy_(torch.as_tensor(
-            np.asarray(values, dtype=np.float64)))
-        out[self.nnz:].zero_()
+        """:func:`device_values` of a factor's host ``values`` on this
+        pattern's device."""
         self.uploads += 1
-        return out
+        return device_values(values, self.idx.device)
 
     def matvec(self, values: torch.Tensor):
-        """x ↦ A x for the factor whose device values are ``values`` (from
-        :meth:`values`): :func:`spmv` of the ELL values (``values`` gathered
-        through ``src``, :func:`ell_vals`'s bit for bit) and the int64
-        ``idx``, equal to it bit for bit.  Both are formed inside each
-        product and freed with it, ``x[idx]`` first and multiplied in
-        place, so a product holds 8·n·kmax bytes beside ``x[idx]``."""
+        """x ↦ A x for the factor whose device values are ``values`` (as
+        :func:`device_values` lays them out): :func:`spmv` of the ELL
+        values (``values`` gathered through ``src``, :func:`ell_vals`'s bit
+        for bit) and the int64 ``idx``, equal to it bit for bit.  Both are
+        formed inside each product and freed with it, ``x[idx]`` first and
+        multiplied in place, so a product holds 8·n·kmax bytes beside
+        ``x[idx]``."""
         self.gathers += 1
         shape = self.src.shape
 

@@ -120,11 +120,12 @@ def test_refactorization_through_the_value_map():
 
 
 def test_trace_records_the_assembly_and_the_ell():
-    """``factor.assemble`` (entries scattered, bytes uploaded), ``solve.ell``
-    (the residual's ELL width; the pattern's int32 ``idx`` and ``src``
-    uploaded once, the factor's float64 values and their zero pad once a
-    factor) and ``factor.values`` (entries gathered) on the TraceLog;
-    nothing with tracing off."""
+    """``factor.assemble`` (entries scattered, where their values were put
+    in order, bytes uploaded: the float64 values alone), ``solve.ell`` (the
+    residual's ELL width; the pattern's int32 ``idx`` and ``src`` uploaded
+    once; the factor's values already on the device from its assembly) and
+    ``factor.values`` (entries gathered) on the TraceLog; nothing with
+    tracing off."""
     m = 4
     _, (n, colptr, rowind, values) = elasticity(m)
     a = st.CscMatrix(n, colptr, rowind, values)
@@ -138,10 +139,10 @@ def test_trace_records_the_assembly_and_the_ell():
         ev.setdefault(e["name"], []).append(e["args"])
     nnz = len(rowind)
     assert ev["factor.values"] == [{"nnz": nnz, "path": "permute"}]
-    assert ev["factor.assemble"] == [{"nnz": nnz, "h2d_bytes": 24 * nnz}]
+    assert ev["factor.assemble"] == [{"nnz": nnz, "path": "host",
+                                      "h2d_bytes": 8 * nnz}]
     assert ev["solve.ell"] == [
-        {"kmax": 81, "rebuilt": True,
-         "h2d_bytes": 8 * (nnz + 1) + (4 + 4) * n * 81},
+        {"kmax": 81, "rebuilt": False, "h2d_bytes": (4 + 4) * n * 81},
         {"kmax": 81, "rebuilt": False, "h2d_bytes": 0}]
     names = [e["name"] for e in num.trace_log.events]
     assert names == ["factor.values", "factor.assemble", "factor",
